@@ -1,0 +1,446 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (sm_90a).
+
+    python3 chip_smoke.py
+
+Phases, each of which raises on failure (exit code non-zero, no result line):
+  1. device and build: needs CUDA; prints the card's name and power limit,
+     builds both kernels from yolo_nano_tpu_torch/csrc with nvcc;
+  2. each kernel against its plain PyTorch version on the card, at the
+     main-path shapes for batch 32 (1.0x COCO model, 416 px): max abs error
+     and tolerance, kernel / plain / library ms, and the bound;
+  3. the main path: load_predictor on the committed folded artifact, 32
+     rendered scenes, serving and eval-strict operating points; checks the
+     kernel launch counts, the detections against predict with the plain
+     versions on the same card, the NMS candidate load; prints img/s and
+     per-stage ms;
+  4. a JSON line of kernel numbers, the card line, and the result line.
+
+Bounds use the H100 SXM's published peaks: 3.35 TB/s of HBM, 67 TFLOP/s
+f32 outside the tensor cores, 989 TFLOP/s bf16 on the tensor cores.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+NPZ = os.path.join(ROOT, "yolo_nano_tpu_torch", "assets", "bench_coco416.npz")
+BATCH = 32
+SIZE = 416
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+OPERATING_POINTS = {
+    "serving": dict(conf_thresh=0.1, nms_thresh=0.45, pre_topk=128),
+    "eval_strict": dict(conf_thresh=0.001, pre_topk=512, max_det=128),
+}
+# BGR colours of the synthetic shape classes: circle, rectangle, triangle
+SHAPE_COLOURS = ((40, 40, 220), (60, 200, 60), (220, 80, 40))
+IMAGE_MEAN = np.array((0.406, 0.456, 0.485), np.float32)  # BGR
+IMAGE_STD = np.array((0.225, 0.224, 0.229), np.float32)
+
+
+# ---------------------------------------------------------------------------
+# inputs
+# ---------------------------------------------------------------------------
+
+def _smooth(img: np.ndarray) -> np.ndarray:
+    """5-tap Gaussian (σ 2) blur along both axes, edges replicated."""
+    k = np.exp(-0.5 * (np.arange(-2, 3) / 2.0) ** 2)
+    k /= k.sum()
+    out = img.astype(np.float32)
+    for axis in (0, 1):
+        pad = [(2, 2) if a == axis else (0, 0) for a in range(3)]
+        p = np.pad(out, pad, mode="edge")
+        n = out.shape[axis]
+        out = sum(k[i] * np.take(p, np.arange(i, i + n), axis=axis)
+                  for i in range(5))
+    return out
+
+
+def render_scenes(n: int, size: int, seed: int = 0) -> np.ndarray:
+    """n scenes of 1-4 filled shapes on smoothed noise → [n,S,S,3] f32 RGB,
+    normalized as the JAX package's val_transform: (img/255 − mean)/std in
+    BGR, then flipped to RGB."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:size, :size]
+    out = np.empty((n, size, size, 3), np.float32)
+    for i in range(n):
+        img = _smooth(rng.integers(60, 190, (size, size, 3)))
+        for _ in range(int(rng.integers(1, 5))):
+            s = int(rng.integers(50, 150))
+            x1 = int(rng.integers(2, size - s - 2))
+            y1 = int(rng.integers(2, size - s - 2))
+            cls = int(rng.integers(3))
+            cx, cy = x1 + s // 2, y1 + s // 2
+            if cls == 0:
+                mask = (xx - cx) ** 2 + (yy - cy) ** 2 <= (s // 2) ** 2
+            elif cls == 1:
+                mask = ((xx >= x1) & (xx <= x1 + s) & (yy >= y1)
+                        & (yy <= y1 + s))
+            else:  # apex (cx, y1), base from (x1, y1+s) to (x1+s, y1+s)
+                half = (yy - y1) / s * (s / 2)
+                mask = (yy >= y1) & (yy <= y1 + s) & (np.abs(xx - cx) <= half)
+            img[mask] = SHAPE_COLOURS[cls]
+        img = np.rint(img).astype(np.uint8).astype(np.float32) / 255.0
+        out[i] = ((img - IMAGE_MEAN) / IMAGE_STD)[..., ::-1]
+    return out
+
+
+# ---------------------------------------------------------------------------
+# timing and bounds
+# ---------------------------------------------------------------------------
+
+def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean ms per call on the card, bracketed by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(nbytes: float, flops: float, dtype) -> tuple:
+    """(bound ms, 'bytes' or 'operations'): the larger of the two times."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def check_close(name, got, want, dtype) -> float:
+    err = (got.float() - want.float()).abs()
+    ref = want.float().abs()
+    if dtype == torch.float32:
+        tol = 1e-4 * ref.max().item() + 1e-5
+        ok = err.max().item() <= tol
+        tol_s = f"{tol:.3g} (1e-4·max|ref| + 1e-5)"
+    else:
+        ok = bool((err <= 2e-2 + 2e-2 * ref).all())
+        tol_s = "2e-2 + 2e-2·|ref|"
+    max_err = err.max().item()
+    print(f"  {name}: max_abs_err {max_err:.3g}, tolerance {tol_s}")
+    if not ok:
+        raise AssertionError(f"{name}: kernel disagrees with its plain "
+                             f"version (max abs err {max_err})")
+    return max_err
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+def phase_device_and_build():
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device")
+    from yolo_nano_tpu_torch.models.yolo_nano import set_full_f32
+    from yolo_nano_tpu_torch.ops.kernels.build import build
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], check=True, capture_output=True,
+        text=True).stdout.strip().splitlines()[0]
+    print(f"[1] card: {card}; torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}")
+    set_full_f32()
+    t0 = time.perf_counter()
+    report = build(ptxas_info=True)
+    for name, r in report.items():
+        used = [ln.split("info    : ")[-1] for ln in r["log"].splitlines()
+                if "Used" in ln or "spill" in ln]
+        print(f"  built {name} in {r['seconds']:.1f} s: {'; '.join(used)}")
+    print(f"  build wall time {time.perf_counter() - t0:.1f} s")
+    return card
+
+
+def _trained_model():
+    from yolo_nano_tpu_torch.convert import load_model
+
+    model, _, _ = load_model(NPZ)
+    return model.cuda()
+
+
+def phase_fused_dw_pw(model):
+    """Head dw→pw pairs at 52², 26², 13² (C = 96), both act pairs, f32 and
+    bf16, with the trained head weights of each level."""
+    import torch.nn.functional as F
+
+    from yolo_nano_tpu_torch.ops.kernels.fused_conv import (fused_dw_pw,
+                                                            fused_dw_pw_plain)
+    from yolo_nano_tpu_torch.ops.nn import activate
+
+    print(f"[2] fused_dw_pw vs plain, batch {BATCH}")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    rows = []
+    for level, hw in enumerate((SIZE // 8, SIZE // 16, SIZE // 32)):
+        head = getattr(model, f"head{level}")
+        dw_w, dw_b, pw_w, pw_b = head._pairs()[0]
+        c, cout = pw_w.shape
+        for dtype in (torch.float32, torch.bfloat16):
+            x = torch.randn(BATCH, hw, hw, c, device="cuda", generator=gen,
+                            dtype=torch.float32).to(dtype).permute(0, 3, 1, 2)
+            w = pw_w.to(dtype)
+            dw_conv = dw_w.permute(2, 0, 1).unsqueeze(1).to(dtype)
+            pw_conv = w.t()[:, :, None, None]
+            for act_mid, act_out in (("leaky", "leaky"), (None, "relu")):
+                def kern():
+                    return fused_dw_pw(x, dw_w, dw_b, w, pw_b,
+                                       act_mid=act_mid, act_out=act_out)
+
+                def plain():
+                    return fused_dw_pw_plain(x, dw_w, dw_b, w, pw_b,
+                                             act_mid=act_mid, act_out=act_out)
+
+                def library():  # cuDNN: depthwise conv, then 1×1 conv
+                    y = activate(F.conv2d(x, dw_conv, dw_b.to(dtype),
+                                          padding=1, groups=c), act_mid)
+                    return activate(F.conv2d(y, pw_conv, pw_b.to(dtype)),
+                                    act_out)
+
+                tag = (f"{hw}x{hw} {str(dtype)[6:]} "
+                       f"{act_mid or 'none'}/{act_out}")
+                err = check_close(tag, kern(), plain(), dtype)
+                out = kern()
+                px = BATCH * hw * hw
+                flops = px * (2 * 9 * c + 2 * c * cout)
+                b_ms, b_by = bound(nbytes(x, dw_w, dw_b, w, pw_b, out), flops,
+                                   dtype)
+                row = dict(shape=tag, max_abs_err=err, ms=time_ms(kern),
+                           plain_ms=time_ms(plain), library_ms=time_ms(library),
+                           bound_ms=b_ms, bound_by=b_by, dtype=str(dtype)[6:],
+                           acts=f"{act_mid}/{act_out}")
+                print(f"    kernel {row['ms']:.4f} ms, plain "
+                      f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f}"
+                      f" ms, bound {b_ms * 1e3:.2f} us ({b_by})")
+                rows.append(row)
+    return rows
+
+
+def _stage_cost(x, blocks):
+    """(flops, weight bytes) of a stage: multiply-adds ×2 of every 1×1 and
+    depthwise 3×3 of its blocks, at this input's sizes."""
+    b, cin, h, w = x.shape
+    flops, wbytes = 0, 0
+    for blk in blocks:
+        c2 = blk["pw1_w"].shape[1]
+        wbytes += nbytes(*(t for k, t in blk.items() if k != "stride"))
+        if blk["stride"] == 2:
+            ho, wo = (h + 1) // 2, (w + 1) // 2
+            po, pi = b * ho * wo, b * h * w
+            flops += po * 2 * 9 * cin + po * 2 * cin * c2      # branch1
+            flops += pi * 2 * cin * c2 + po * (2 * 9 * c2 + 2 * c2 * c2)
+            h, w, cin = ho, wo, 2 * c2
+        else:
+            flops += b * h * w * (4 * c2 * c2 + 2 * 9 * c2)
+    return flops, wbytes
+
+
+def phase_fused_stage(model, images):
+    """Stages 2/3/4 with the trained folded weights, on the main path's own
+    activations for the rendered scenes, f32."""
+    from yolo_nano_tpu_torch.ops.kernels.fused_stage import (
+        fused_stage, fused_stage_plain, prepare_stage)
+    from yolo_nano_tpu_torch.ops.nn import max_pool_3x3_s2
+
+    print(f"[2] fused_stage vs plain, batch {BATCH}")
+    bb = model.backbone
+    with torch.inference_mode():
+        x = max_pool_3x3_s2(bb.conv1(images.permute(0, 3, 1, 2)))
+        x = x.contiguous(memory_format=torch.channels_last)
+        rows = []
+        for name in ("stage2", "stage3", "stage4"):
+            blocks = prepare_stage(getattr(bb, name))
+            want = fused_stage_plain(x, blocks)
+            got = fused_stage(x, blocks)
+            tag = f"{name} {tuple(x.shape)}→{tuple(want.shape)}"
+            err = check_close(tag, got, want, torch.float32)
+            flops, wbytes = _stage_cost(x, blocks)
+            b_ms, b_by = bound(nbytes(x, want) + wbytes, flops, torch.float32)
+            xx = x
+            row = dict(shape=tag, max_abs_err=err,
+                       ms=time_ms(lambda: fused_stage(xx, blocks)),
+                       plain_ms=time_ms(lambda: fused_stage_plain(xx, blocks)),
+                       library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                       launches_per_call=len(blocks))
+            print(f"    kernel {row['ms']:.4f} ms ({len(blocks)} launches), "
+                  f"plain {row['plain_ms']:.4f} ms, bound "
+                  f"{b_ms * 1e3:.2f} us ({b_by})")
+            rows.append(row)
+            x = want  # chain on the plain output
+    return rows
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route the model's kernel calls to their plain versions, for the
+    comparison run only."""
+    from yolo_nano_tpu_torch.models import shufflenetv2, yolo_nano
+    from yolo_nano_tpu_torch.ops.kernels import fused_conv, fused_stage
+
+    saved = shufflenetv2.fused_stage, yolo_nano.fused_dw_pw
+    shufflenetv2.fused_stage = fused_stage.fused_stage_plain
+    yolo_nano.fused_dw_pw = fused_conv.fused_dw_pw_plain
+    try:
+        yield
+    finally:
+        shufflenetv2.fused_stage, yolo_nano.fused_dw_pw = saved
+
+
+def reset_counts():
+    from yolo_nano_tpu_torch.ops.kernels.fused_conv import fused_dw_pw
+    from yolo_nano_tpu_torch.ops.kernels.fused_stage import fused_stage
+
+    fused_dw_pw.launches = 0
+    fused_stage.calls = 0
+    fused_stage.launches = 0
+
+
+def read_counts():
+    from yolo_nano_tpu_torch.ops.kernels.fused_conv import fused_dw_pw
+    from yolo_nano_tpu_torch.ops.kernels.fused_stage import fused_stage
+
+    return dict(fused_dw_pw=fused_dw_pw.launches,
+                fused_stage_calls=fused_stage.calls,
+                fused_stage=fused_stage.launches)
+
+
+def phase_main_path(images_np):
+    from yolo_nano_tpu_torch.models.yolo_nano import (postprocess_scored,
+                                                      scores_from_features)
+    from yolo_nano_tpu_torch.serving import load_predictor
+
+    print(f"[3] main path: load_predictor({os.path.relpath(NPZ, ROOT)}), "
+          f"{BATCH} scenes at {SIZE}")
+    fns = {p: load_predictor(NPZ, **kw) for p, kw in OPERATING_POINTS.items()}
+    for fn in fns.values():
+        if fn.device.type != "cuda":
+            raise AssertionError(f"predictor on {fn.device}, not CUDA")
+        fn(images_np)  # warm-up
+
+    reset_counts()
+    outs = {p: fn(images_np) for p, fn in fns.items()}
+    counts = read_counts()
+    print(f"  launch counts over {len(fns)} forwards: {counts}")
+    want = dict(fused_dw_pw=6 * len(fns), fused_stage_calls=3 * len(fns),
+                fused_stage=16 * len(fns))
+    if counts != want:
+        raise AssertionError(f"launch counts {counts}, expected {want}")
+
+    stats = {}
+    for point, fn in fns.items():
+        with plain_kernels():
+            plain = fn(images_np)
+        got = outs[point]
+        if not (np.array_equal(got[3], plain[3])
+                and np.array_equal(got[2], plain[2])):
+            raise AssertionError(f"{point}: valid/classes differ from the "
+                                 "plain-version predict")
+        for name, i in (("scores", 1), ("boxes", 0)):
+            d = float(np.abs(got[i] - plain[i]).max())
+            if d > 1e-4:
+                raise AssertionError(f"{point}: {name} differ by {d}")
+        b, s, c, v = got
+        if b.shape != (BATCH, fn.cfg.max_detections, 4) or not (
+                np.isfinite(b).all() and np.isfinite(s).all()):
+            raise AssertionError(f"{point}: bad output {b.shape}")
+        if (b[v] < 0).any() or (b[v] > 1).any():
+            raise AssertionError(f"{point}: boxes outside [0, 1]")
+
+        model, cfg = fn.model, fn.cfg
+        x = torch.from_numpy(images_np).cuda()
+        with torch.inference_mode():
+            conf, cls, txty = model(x)
+            score, cidx = scores_from_features(conf, cls)
+            cands = float((score >= cfg.conf_thresh).sum(1).float().mean())
+            fwd_ms = time_ms(lambda: model(x), iters=10)
+            sc_ms = time_ms(lambda: scores_from_features(conf, cls), iters=10)
+            pp_ms = time_ms(lambda: postprocess_scored(txty, score, cidx, cfg,
+                                                       SIZE), iters=10)
+        iters = 10
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            x = torch.from_numpy(images_np).to("cuda")
+            torch.cuda.synchronize()
+        h2d_ms = (time.perf_counter() - t0) / iters * 1e3
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn(images_np)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) / iters * 1e3
+        stats[point] = dict(img_per_s=BATCH / step_ms * 1e3,
+                            mean_candidates_per_img=cands,
+                            detections_per_img=float(v.sum(1).mean()),
+                            batch_ms=step_ms, host_to_device_ms=h2d_ms,
+                            forward_ms=fwd_ms, scores_ms=sc_ms,
+                            postprocess_ms=pp_ms)
+        print(f"  {point}: {stats[point]['img_per_s']:.1f} img/s (numpy in, "
+              f"numpy out), {cands:.2f} candidates/img, "
+              f"{stats[point]['detections_per_img']:.2f} detections/img; per "
+              f"batch {step_ms:.3f} ms: host→device copy {h2d_ms:.3f} ms, "
+              f"forward {fwd_ms:.3f} ms, scores {sc_ms:.3f} ms, postprocess "
+              f"{pp_ms:.3f} ms; matches plain predict")
+    if not stats["eval_strict"]["mean_candidates_per_img"] > 0:
+        raise AssertionError("eval-strict: no candidates, NMS did no work")
+    return counts, stats
+
+
+def kernel_row(name, rows, per_fwd, launches, replaces):
+    """One JSON row per kernel: its main-path calls of one forward summed
+    (the two head pairs of a level share a shape, so one is timed twice)."""
+    total = lambda key: sum(r[key] * per_fwd for r in rows)  # noqa: E731
+    library = [r["library_ms"] for r in rows]
+    return dict(
+        name=name, route="cuda", source=f"yolo_nano_tpu_torch/csrc/{name}.cu",
+        replaces=replaces, launches=launches,
+        max_abs_err=max(r["max_abs_err"] for r in rows),
+        ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
+        bound_by=max(rows, key=lambda r: r["bound_ms"])["bound_by"],
+        library_ms=None if None in library else total("library_ms"),
+        calls_per_forward=per_fwd * len(rows))
+
+
+def main():
+    card = phase_device_and_build()
+    images_np = render_scenes(BATCH, SIZE)
+    model = _trained_model()
+    with torch.inference_mode():
+        dw_rows = phase_fused_dw_pw(model)
+    stage_rows = phase_fused_stage(model, torch.from_numpy(images_np).cuda())
+    counts, stats = phase_main_path(images_np)
+    print(json.dumps({"main_path": stats, "batch": BATCH, "size": SIZE,
+                      "fused_dw_pw_per_shape": dw_rows,
+                      "fused_stage_per_stage": stage_rows}))
+    # the main path runs the heads in f32 with leaky/leaky
+    main_dw = [r for r in dw_rows if r["dtype"] == "float32"
+               and r["acts"] == "leaky/leaky"]
+    kernels = [
+        kernel_row("fused_dw_pw", main_dw, 2, counts["fused_dw_pw"],
+                   "yolo_nano_tpu/ops/pallas/fused_conv.py:108"),
+        kernel_row("fused_stage", stage_rows, 1, counts["fused_stage"],
+                   "yolo_nano_tpu/ops/pallas/fused_stage.py:223")]
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,88 @@
+"""Typed configuration: the port's own copy of the JAX package's tables.
+
+Anchor tables are the reference k-means anchors (pixel units); the channel
+tables and repeats are ShuffleNetV2's. The port keeps its own copy so that it
+imports nothing of the JAX package.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Tuple
+
+IGNORE_THRESH = 0.5
+
+# VOC, 9 anchors, 3 per stride level
+MULTI_ANCHOR_SIZE = (
+    (30.65, 39.12), (50.3, 102.62), (94.98, 64.55),
+    (93.5, 177.51), (165.25, 113.85), (161.83, 240.95),
+    (304.64, 150.34), (251.28, 306.53), (369.38, 261.55),
+)
+
+# COCO
+MULTI_ANCHOR_SIZE_COCO = (
+    (11.89, 14.24), (30.14, 35.62), (45.99, 87.04),
+    (92.23, 44.43), (130.78, 99.73), (78.99, 170.81),
+    (290.39, 123.89), (165.27, 233.33), (332.57, 279.8),
+)
+
+# ShuffleNetV2 channel tables: stem, stage2, stage3, stage4, (unused conv5)
+SHUFFLENETV2_CHANNELS = {
+    "0.5x": (24, 48, 96, 192, 1024),
+    "1.0x": (24, 116, 232, 464, 1024),
+    "1.5x": (24, 176, 352, 704, 1024),
+    "2.0x": (24, 244, 488, 976, 2048),
+}
+SHUFFLENETV2_REPEATS = (4, 8, 4)
+
+
+@dataclasses.dataclass(frozen=True)
+class YoloNanoConfig:
+    """Static model/build configuration."""
+
+    num_classes: int = 20
+    backbone: str = "1.0x"  # any of SHUFFLENETV2_CHANNELS keys
+    anchors: Tuple[Tuple[float, float], ...] = MULTI_ANCHOR_SIZE
+    strides: Tuple[int, ...] = (8, 16, 32)
+    neck_channels: int = 96
+    ignore_thresh: float = IGNORE_THRESH
+    # postprocess
+    conf_thresh: float = 0.001
+    nms_thresh: float = 0.50
+    diou_nms: bool = False
+    # fixed-shape NMS budget
+    nms_pre_topk: int = 512   # candidates entering NMS (per image)
+    max_detections: int = 128  # final detections per image
+    # compute dtype for activations ("float32" or "bfloat16")
+    compute_dtype: str = "float32"
+
+    @property
+    def num_anchors_per_level(self) -> int:
+        return len(self.anchors) // len(self.strides)
+
+    @property
+    def backbone_channels(self) -> Tuple[int, ...]:
+        return SHUFFLENETV2_CHANNELS[self.backbone]
+
+    @property
+    def head_out_channels(self) -> int:
+        # A * (1 + C + 4)
+        return self.num_anchors_per_level * (1 + self.num_classes + 4)
+
+    def num_cells(self, input_size: int) -> int:
+        """Total grid cells Σ (H/s · W/s) across levels for a square input."""
+        return sum((input_size // s) * (input_size // s) for s in self.strides)
+
+    def num_predictions(self, input_size: int) -> int:
+        """Total predictions N = Σ HW·A across levels."""
+        return self.num_cells(input_size) * self.num_anchors_per_level
+
+
+def config_from_json(meta: dict, **overrides) -> YoloNanoConfig:
+    """An artifact's `config.json` content → YoloNanoConfig (JSON lists back
+    to the tuples the frozen dataclass expects)."""
+    raw = dict(meta["config"])
+    raw["anchors"] = tuple(tuple(a) for a in raw["anchors"])
+    raw["strides"] = tuple(raw["strides"])
+    raw.update(overrides)
+    return YoloNanoConfig(**raw)

@@ -1,0 +1,89 @@
+"""ShuffleNetV2 backbone as nn.Modules (NCHW, channels_last memory).
+
+Stem 3×3/s2 conv-BN-ReLU + 3×3/s2 max-pool, then stages 2/3/4, returning the
+stage-2/3/4 feature maps (strides 8/16/32) for the detection neck. Module
+names mirror the JAX parameter tree (`conv1`, `stage2.0.branch1.dw`, ...).
+
+On a BN-folded model each stage runs as one `fused_stage` call: on the card
+that is the CUDA kernel, one launch per block; on the CPU its plain version.
+An unfolded model (eval-mode BN) runs block by block.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from yolo_nano_tpu_torch.ops.kernels.fused_stage import fused_stage, prepare_stage
+from yolo_nano_tpu_torch.ops.nn import ConvUnit, channel_shuffle, max_pool_3x3_s2
+
+
+class ShuffleBlock(nn.Module):
+    """Stride 2 when `branch1` (dw, pw) is given, else stride 1 with a
+    channel split and an identity left half. branch2 is (pw1, dw, pw2)."""
+
+    def __init__(self, branch2: nn.ModuleDict,
+                 branch1: Optional[nn.ModuleDict] = None):
+        super().__init__()
+        self.branch1 = branch1
+        self.branch2 = branch2
+
+    def _branch2(self, x):
+        b2 = self.branch2
+        return b2["pw2"](b2["dw"](b2["pw1"](x)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.branch1 is None:
+            c = x.shape[1] // 2
+            out = torch.cat([x[:, :c], self._branch2(x[:, c:])], 1)
+        else:
+            b1 = self.branch1["pw"](self.branch1["dw"](x))
+            out = torch.cat([b1, self._branch2(x)], 1)
+        return channel_shuffle(out, 2)
+
+
+class ShuffleStage(nn.ModuleList):
+    """A stride-2 block followed by stride-1 blocks."""
+
+    def __init__(self, blocks):
+        super().__init__(blocks)
+        self._kernel_weights = None
+
+    @property
+    def folded(self) -> bool:
+        return not any(isinstance(m, ConvUnit) and m.has_bn
+                       for m in self.modules())
+
+    def _apply(self, fn, *args, **kwargs):
+        self._kernel_weights = None  # .to()/.cuda() move the weights
+        return super()._apply(fn, *args, **kwargs)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.folded:
+            if self._kernel_weights is None:
+                self._kernel_weights = prepare_stage(self)
+            return fused_stage(
+                x.contiguous(memory_format=torch.channels_last),
+                self._kernel_weights)
+        for blk in self:
+            x = blk(x)
+        return x
+
+
+class ShuffleNetV2(nn.Module):
+    def __init__(self, conv1: ConvUnit, stage2: ShuffleStage,
+                 stage3: ShuffleStage, stage4: ShuffleStage):
+        super().__init__()
+        self.conv1 = conv1
+        self.stage2 = stage2
+        self.stage3 = stage3
+        self.stage4 = stage4
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+        """x [B,3,H,W] → (c3, c4, c5) at strides 8, 16, 32."""
+        y = max_pool_3x3_s2(self.conv1(x))
+        c3 = self.stage2(y)
+        c4 = self.stage3(c3)
+        return c3, c4, self.stage4(c4)

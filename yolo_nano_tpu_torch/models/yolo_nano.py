@@ -1,0 +1,165 @@
+"""YOLO-Nano detector: ShuffleNetV2 backbone + FPN/PAN neck + 3-level head.
+
+Public functions keep the JAX package's layouts: images [B,S,S,3] NHWC f32;
+`predict` returns (boxes [B,D,4] normalized x1y1x2y2, scores [B,D],
+classes [B,D] int32, valid [B,D] bool). Inside, tensors are NCHW in
+channels_last memory.
+
+Head channel layout: per level the A·(1+C+4) output channels are
+[conf ×A | (classes ×C) anchor-major | txtytwth ×4 anchor-major]; levels are
+concatenated HW-major, so prediction row n = level_offset + cell·A + anchor.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from yolo_nano_tpu_torch.config import YoloNanoConfig
+from yolo_nano_tpu_torch.models.shufflenetv2 import ShuffleNetV2
+from yolo_nano_tpu_torch.ops.decode import decode_boxes_gathered
+from yolo_nano_tpu_torch.ops.kernels.fused_conv import fused_dw_pw
+from yolo_nano_tpu_torch.ops.nms import nms_on_candidates, stable_topk
+from yolo_nano_tpu_torch.ops.nn import (ConvUnit, downsample2x_nearest,
+                                        upsample2x_nearest)
+
+
+class Head(nn.Module):
+    """dw3×3 → 1×1 → dw3×3 → 1×1 (conv blocks, LeakyReLU) → plain 1×1.
+
+    Folded, each dw→pw pair is one `fused_dw_pw` call: on the card the CUDA
+    kernel, on the CPU its plain version."""
+
+    def __init__(self, dw0: ConvUnit, pw0: ConvUnit, dw1: ConvUnit,
+                 pw1: ConvUnit, out: ConvUnit):
+        super().__init__()
+        self.dw0, self.pw0, self.dw1, self.pw1, self.out = dw0, pw0, dw1, pw1, out
+        self._kernel_weights = None
+
+    @property
+    def folded(self) -> bool:
+        return not any(u.has_bn for u in (self.dw0, self.pw0, self.dw1,
+                                           self.pw1))
+
+    def _apply(self, fn, *args, **kwargs):
+        self._kernel_weights = None  # .to()/.cuda() move the weights
+        return super()._apply(fn, *args, **kwargs)
+
+    def _pairs(self):
+        """Kernel layouts: dw [3,3,C], dw_b, pw [C,Cout], pw_b."""
+        if self._kernel_weights is None:
+            self._kernel_weights = [
+                (dw.weight[:, 0].permute(1, 2, 0).contiguous(), dw.bias,
+                 pw.weight[:, :, 0, 0].t().contiguous(), pw.bias)
+                for dw, pw in ((self.dw0, self.pw0), (self.dw1, self.pw1))]
+        return self._kernel_weights
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.folded:
+            x = x.contiguous(memory_format=torch.channels_last)
+            for dw_w, dw_b, pw_w, pw_b in self._pairs():
+                x = fused_dw_pw(x, dw_w, dw_b, pw_w.to(x.dtype), pw_b,
+                                act_mid="leaky", act_out="leaky")
+        else:
+            x = self.pw1(self.dw1(self.pw0(self.dw0(x))))
+        return self.out(x)
+
+
+class YoloNano(nn.Module):
+    """Module names mirror the JAX parameter tree: backbone, lateral0-2,
+    smooth0-3, head0-2."""
+
+    def __init__(self, cfg: YoloNanoConfig, backbone: ShuffleNetV2,
+                 laterals, smooths, heads):
+        super().__init__()
+        self.cfg = cfg
+        self.backbone = backbone
+        for i, m in enumerate(laterals):
+            setattr(self, f"lateral{i}", m)
+        for i, m in enumerate(smooths):
+            setattr(self, f"smooth{i}", m)
+        for i, m in enumerate(heads):
+            setattr(self, f"head{i}", m)
+
+    def forward(self, images: torch.Tensor):
+        """images [B,H,W,3] → (conf [B,N,1], cls [B,N,C],
+        txtytwth [B,ΣHW,A,4])."""
+        a = self.cfg.num_anchors_per_level
+        c = self.cfg.num_classes
+        x = images.permute(0, 3, 1, 2)  # NHWC bytes = NCHW channels_last
+        c3, c4, c5 = self.backbone(x)
+        p3, p4, p5 = self.lateral0(c3), self.lateral1(c4), self.lateral2(c5)
+        # FPN top-down
+        p4 = self.smooth0(p4 + upsample2x_nearest(p5))
+        p3 = self.smooth1(p3 + upsample2x_nearest(p4))
+        # PAN bottom-up
+        p4 = self.smooth2(p4 + downsample2x_nearest(p3))
+        p5 = self.smooth3(p5 + downsample2x_nearest(p4))
+
+        confs, clss, boxes = [], [], []
+        for head, feat in zip((self.head0, self.head1, self.head2),
+                              (p3, p4, p5)):
+            pred = head(feat)
+            b, ch, h, w = pred.shape
+            # NHWC before flattening: row = cell·A + anchor
+            pred = pred.permute(0, 2, 3, 1).reshape(b, h * w, ch)
+            confs.append(pred[..., :a].reshape(b, h * w * a, 1))
+            clss.append(pred[..., a:(1 + c) * a].reshape(b, h * w * a, c))
+            boxes.append(pred[..., (1 + c) * a:].reshape(b, h * w, a, 4))
+        return torch.cat(confs, 1), torch.cat(clss, 1), torch.cat(boxes, 1)
+
+
+def forward_features(model: YoloNano, images: torch.Tensor):
+    """images [B,H,W,3] → (conf [B,N,1], cls [B,N,C], txtytwth [B,ΣHW,A,4])."""
+    return model(images)
+
+
+def scores_from_features(conf_pred, cls_pred):
+    """Head outputs → (score [B,N], cls [B,N] int32), with
+    score = max_c softmax(cls)·sigmoid(obj) = exp(max − logsumexp)·obj."""
+    obj = torch.sigmoid(conf_pred.float())[..., 0]
+    logits = cls_pred.float()
+    m = logits.max(-1).values
+    lse = m + torch.log(torch.exp(logits - m[..., None]).sum(-1))
+    score = torch.exp(m - lse) * obj
+    cls = torch.argmax(logits, -1).to(torch.int32)
+    return score, cls
+
+
+def postprocess_scored(txtytwth_pred, score, cls, cfg: YoloNanoConfig,
+                       input_size: int):
+    """Confidence filter + top-k on scores, decode only the K survivors,
+    then per-class greedy NMS → fixed-shape detections."""
+    b, n = score.shape
+    k = min(cfg.nms_pre_topk, n)
+    ranked = torch.where(score >= cfg.conf_thresh, score,
+                         torch.full_like(score, -1.0))
+    top_score, idx = stable_topk(ranked, k)
+    txty = txtytwth_pred.float().reshape(b, n, 4)
+    txty_k = torch.gather(txty, 1, idx[..., None].expand(b, k, 4))
+    top_boxes = torch.clamp(
+        decode_boxes_gathered(txty_k, idx, cfg, input_size) / input_size,
+        0.0, 1.0)
+    top_cls = torch.gather(cls, 1, idx)
+    return nms_on_candidates(top_boxes, top_score, top_cls,
+                             iou_thresh=cfg.nms_thresh,
+                             max_det=cfg.max_detections, diou=cfg.diou_nms)
+
+
+def set_full_f32() -> None:
+    """Full-precision f32 on the card: cuDNN convolutions default to TF32
+    (about three decimal digits), which would make kernel-vs-plain and
+    port-vs-JAX comparisons unlike for like."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
+@torch.inference_mode()
+def predict(model: YoloNano, images: torch.Tensor, cfg: YoloNanoConfig,
+            input_size: int):
+    """Batched inference: images [B,S,S,3] → (boxes [B,D,4], scores [B,D],
+    classes [B,D] int32, valid [B,D] bool), all on the images' device."""
+    set_full_f32()  # f32 means f32: TF32 off for convolutions and matmuls
+    conf_pred, cls_pred, txtytwth_pred = model(images)
+    score, cls = scores_from_features(conf_pred, cls_pred)
+    return postprocess_scored(txtytwth_pred, score, cls, cfg, input_size)

@@ -1,0 +1,108 @@
+"""Fused depthwise-3×3 → act → pointwise-1×1 → act: the CUDA kernel
+`csrc/fused_dw_pw.cu` and its plain PyTorch version.
+
+Same function as the JAX package's Pallas `fused_dw_pw`:
+    out = act_out(act_mid(dw3×3(x, pad 1) + dw_b) @ pw_w + pw_b)
+with the depthwise taps summed in f32, the pointwise product taken in x's
+dtype with f32 accumulation, and the output in x's dtype. It runs the two
+dw→pw pairs of every detection head on a folded model.
+
+Layouts: x is [B, C, H, W] in channels_last memory (NHWC bytes); the weights
+keep the JAX kernel's layouts: dw_w [3, 3, C] f32, dw_b [C] f32,
+pw_w [C, Cout] in x's dtype, pw_b [Cout] f32.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from yolo_nano_tpu_torch.ops.kernels.build import check, load
+from yolo_nano_tpu_torch.ops.nn import activate
+
+ACT_CODES = {None: 0, "relu": 1, "leaky": 2}
+_SYMBOLS = {torch.float32: "fused_dw_pw_f32", torch.bfloat16: "fused_dw_pw_bf16"}
+
+
+def fused_dw_pw_plain(x, dw_w, dw_b, pw_w, pw_b, *,
+                      act_mid: Optional[str] = "leaky",
+                      act_out: Optional[str] = "leaky") -> torch.Tensor:
+    """Plain PyTorch version: the CPU path and the kernel's oracle."""
+    c = x.shape[1]
+    y = F.conv2d(x.float(), dw_w.permute(2, 0, 1).unsqueeze(1), dw_b,
+                 padding=1, groups=c)
+    y = activate(y, act_mid)
+    # the pointwise product runs in x's dtype with f32 accumulation: round
+    # both operands to x's dtype, then multiply-accumulate in f32
+    y = y.to(x.dtype).float()
+    w = pw_w.to(x.dtype).float().t()[:, :, None, None]
+    y = activate(F.conv2d(y, w, pw_b), act_out)
+    return y.to(x.dtype).contiguous(memory_format=torch.channels_last)
+
+
+def _check(x, dw_w, dw_b, pw_w, pw_b):
+    if x.dim() != 4 or x.dtype not in _SYMBOLS:
+        raise ValueError(f"x must be [B,C,H,W] f32 or bf16, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    c = x.shape[1]
+    cout = pw_w.shape[-1]
+    want = {"dw_w": ((3, 3, c), torch.float32), "dw_b": ((c,), torch.float32),
+            "pw_w": ((c, cout), x.dtype), "pw_b": ((cout,), torch.float32)}
+    for name, t in (("dw_w", dw_w), ("dw_b", dw_b), ("pw_w", pw_w),
+                    ("pw_b", pw_b)):
+        shape, dtype = want[name]
+        if tuple(t.shape) != shape or t.dtype != dtype:
+            raise ValueError(f"{name} must be {shape} {dtype}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+        if t.device != x.device:
+            raise ValueError(f"{name} is on {t.device}, x on {x.device}")
+
+
+def _lib():
+    lib = load("fused_dw_pw")
+    for sym in _SYMBOLS.values():
+        fn = getattr(lib, sym)
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+            ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def fused_dw_pw(x, dw_w, dw_b, pw_w, pw_b, *,
+                act_mid: Optional[str] = "leaky",
+                act_out: Optional[str] = "leaky") -> torch.Tensor:
+    """x [B,C,H,W] channels_last → [B,Cout,H,W] channels_last, x's dtype.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+    (and counts the launch in `fused_dw_pw.launches`) or raises."""
+    _check(x, dw_w, dw_b, pw_w, pw_b)
+    if x.device.type == "cpu":
+        return fused_dw_pw_plain(x, dw_w, dw_b, pw_w, pw_b, act_mid=act_mid,
+                                 act_out=act_out)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_dw_pw runs on CPU or CUDA, not {x.device}")
+    if not x.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError("x must be channels_last contiguous")
+    for t in (dw_w, dw_b, pw_w, pw_b):
+        if not t.is_contiguous():
+            raise ValueError("weights must be contiguous")
+    b, c, h, w = x.shape
+    cout = pw_w.shape[1]
+    out = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device,
+                      memory_format=torch.channels_last)
+    if out.numel() == 0:
+        return out
+    fn = getattr(_lib(), _SYMBOLS[x.dtype])
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = fn(x.data_ptr(), dw_w.data_ptr(), dw_b.data_ptr(), pw_w.data_ptr(),
+             pw_b.data_ptr(), out.data_ptr(), b, h, w, c, cout,
+             ACT_CODES[act_mid], ACT_CODES[act_out], stream)
+    fused_dw_pw.launches += 1
+    check(err, "fused_dw_pw")
+    return out
+
+
+fused_dw_pw.launches = 0

@@ -1,0 +1,184 @@
+"""One ShuffleNetV2 stage on folded weights: the CUDA kernel
+`csrc/fused_stage.cu` (one launch per block) and its plain PyTorch version.
+
+Same function as the JAX package's Pallas `fused_stage`: a stride-2 block
+(two downsampling branches, concat, shuffle g=2), then n stride-1 blocks
+(channel split, right half through pw+ReLU → dw3×3 → pw+ReLU, concat,
+shuffle). Concat + shuffle is the interleave out[2j] = left[j],
+out[2j+1] = right[j].
+
+`prepare_stage` only reshapes a folded stage's weights into the kernel's
+layouts: pointwise [Cin, Cout], depthwise [9, C] (tap-major), biases [C],
+all f32 and contiguous. x is [B, C, H, W] f32 in channels_last memory.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Dict, List
+
+import torch
+import torch.nn.functional as F
+
+from yolo_nano_tpu_torch.ops.kernels.build import check, load
+from yolo_nano_tpu_torch.ops.nn import channel_shuffle
+
+_WEIGHTS = ("pw1_w", "pw1_b", "dw_w", "dw_b", "pw2_w", "pw2_b",
+            "b1dw_w", "b1dw_b", "b1pw_w", "b1pw_b")
+
+
+def _pw(unit) -> tuple:
+    """Folded 1×1 unit → (w [Cin, Cout], b [Cout])."""
+    return (unit.weight[:, :, 0, 0].t().float().contiguous(),
+            unit.bias.float().contiguous())
+
+
+def _dw(unit) -> tuple:
+    """Folded depthwise 3×3 unit → (w [9, C], b [C])."""
+    c = unit.weight.shape[0]
+    return (unit.weight.reshape(c, 9).t().float().contiguous(),
+            unit.bias.float().contiguous())
+
+
+def prepare_stage(blocks) -> List[Dict[str, torch.Tensor]]:
+    """A folded stage (models.shufflenetv2.ShuffleStage: a stride-2 block,
+    then stride-1 blocks) → one dict of kernel-layout weights per block."""
+    out = []
+    for i, blk in enumerate(blocks):
+        if (blk.branch1 is not None) != (i == 0):
+            raise ValueError("a stage is one stride-2 block, then stride-1 "
+                             "blocks")
+        b2 = blk.branch2
+        if any(u.has_bn for u in b2.values()):
+            raise ValueError("fused_stage takes a BN-folded stage")
+        w = {"stride": 2 if i == 0 else 1}
+        w["pw1_w"], w["pw1_b"] = _pw(b2["pw1"])
+        w["dw_w"], w["dw_b"] = _dw(b2["dw"])
+        w["pw2_w"], w["pw2_b"] = _pw(b2["pw2"])
+        if i == 0:
+            w["b1dw_w"], w["b1dw_b"] = _dw(blk.branch1["dw"])
+            w["b1pw_w"], w["b1pw_b"] = _pw(blk.branch1["pw"])
+        out.append(w)
+    return out
+
+
+def _pw_plain(x, w, b, relu=True):
+    y = F.conv2d(x, w.t()[:, :, None, None], b)
+    return torch.relu(y) if relu else y
+
+
+def _dw_plain(x, w, b, stride):
+    c = w.shape[1]
+    return F.conv2d(x, w.t().reshape(c, 1, 3, 3), b, stride=stride,
+                    padding=1, groups=c)
+
+
+def block_plain(x: torch.Tensor, w: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """One ShuffleV2 block from kernel-layout weights, in plain PyTorch."""
+    if w["stride"] == 2:
+        even = _pw_plain(_dw_plain(x, w["b1dw_w"], w["b1dw_b"], 2),
+                         w["b1pw_w"], w["b1pw_b"])
+        right = x
+    else:
+        c2 = x.shape[1] // 2
+        even, right = x[:, :c2], x[:, c2:]
+    t = _pw_plain(right, w["pw1_w"], w["pw1_b"])
+    t = _dw_plain(t, w["dw_w"], w["dw_b"], w["stride"])
+    odd = _pw_plain(t, w["pw2_w"], w["pw2_b"])
+    return channel_shuffle(torch.cat([even, odd], 1), 2)
+
+
+def fused_stage_plain(x: torch.Tensor, blocks) -> torch.Tensor:
+    """Plain PyTorch version: the CPU path and the kernel's oracle."""
+    for w in blocks:
+        x = block_plain(x, w)
+    return x
+
+
+# At 40 registers a thread, an SM holds 6 blocks of 256 threads; 28 KB of
+# shared memory per block lets all 6 fit there too. Many resident blocks
+# hide the latency of the f32 product loops, which outweighs recomputing
+# pw1 on the halo of a small tile (PERF.md, tile size of the stage kernel).
+SMEM_BUDGET = 28 * 1024
+
+
+def smem_bytes(tile: int, stride: int, cin: int, c2: int) -> int:
+    """Shared memory of one thread block (the layout in fused_stage.cu):
+    region offsets, pw1 over the region (or branch1's depthwise), dw out."""
+    r = (tile - 1) * stride + 3
+    a = max(r * r * c2, tile * tile * cin if stride == 2 else 0)
+    return 4 * ((r * r + 3) // 4 * 4) + 4 * (a + tile * tile * c2)
+
+
+def block_tile(stride: int, cin: int, c2: int) -> int:
+    """Output tile side: the largest up to 8 whose buffers fit SMEM_BUDGET."""
+    tile = 8
+    while tile > 1 and smem_bytes(tile, stride, cin, c2) > SMEM_BUDGET:
+        tile -= 1
+    return tile
+
+
+def _lib():
+    fn = load("fused_stage").shuffle_block_f32
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p] * 11)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _launch_block(fn, x, w):
+    b, cin, h, wd = x.shape
+    c2 = w["pw1_w"].shape[1]
+    k1 = cin if w["stride"] == 2 else cin // 2
+    if w["stride"] == 1 and cin != 2 * c2:
+        raise ValueError(f"stride-1 block needs Cin = 2·{c2}, got {cin}")
+    if w["pw1_w"].shape[0] != k1:
+        raise ValueError(f"pw1 takes {w['pw1_w'].shape[0]} channels, x "
+                         f"gives {k1}")
+    s = w["stride"]
+    tile = block_tile(s, cin, c2)
+    out = torch.empty((b, 2 * c2, (h - 1) // s + 1, (wd - 1) // s + 1),
+                      dtype=torch.float32, device=x.device,
+                      memory_format=torch.channels_last)
+    ptrs = []
+    for name in _WEIGHTS:
+        t = w.get(name)
+        if t is None:  # the stride-1 block has no branch1
+            ptrs.append(None)
+            continue
+        if (t.device != x.device or t.dtype != torch.float32
+                or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous f32 on {x.device}")
+        ptrs.append(t.data_ptr())
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = fn(x.data_ptr(), out.data_ptr(), b, h, wd, cin, c2, s, tile, *ptrs,
+             stream)
+    fused_stage.launches += 1
+    check(err, "fused_stage block")
+    return out
+
+
+def fused_stage(x: torch.Tensor, blocks) -> torch.Tensor:
+    """Run a whole stage: x [B,Cin,H,W] → [B,Cout,⌈H/2⌉,⌈W/2⌉], channels_last.
+
+    `blocks` is `prepare_stage`'s list. A CPU tensor takes the plain
+    version; a CUDA tensor launches one kernel per block (counted in
+    `fused_stage.launches`; `fused_stage.calls` counts stages) or raises."""
+    if x.dim() != 4 or x.dtype != torch.float32:
+        raise ValueError(f"x must be [B,C,H,W] f32, got {tuple(x.shape)} "
+                         f"{x.dtype}")
+    if x.device.type == "cpu":
+        return fused_stage_plain(x, blocks)
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_stage runs on CPU or CUDA, not {x.device}")
+    if not x.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError("x must be channels_last contiguous")
+    fn = _lib()
+    fused_stage.calls += 1
+    for w in blocks:
+        x = _launch_block(fn, x, w)
+    return x
+
+
+fused_stage.calls = 0
+fused_stage.launches = 0
