@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU (sm_90a).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --sweep-stage-tiles   # phases 1-2, then the sweep
 
 Phases, each of which raises on failure (exit code non-zero, no result line):
   1. device and build: needs CUDA; prints the card's name and power limit,
@@ -11,17 +12,27 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
      and tolerance, kernel / plain / library ms, and the bound;
   3. the main path: load_predictor on the committed folded artifact, 32
      rendered scenes, serving and eval-strict operating points; checks the
-     kernel launch counts, the detections against predict with the plain
-     versions on the same card, the NMS candidate load; prints img/s and
-     per-stage ms;
+     kernel launch counts, the detections slot for slot against predict
+     with the plain versions on the same card, the NMS candidate load;
+     prints img/s and per-stage ms;
   4. a JSON line of kernel numbers, the card line, and the result line.
 
-Bounds use the H100 SXM's published peaks: 3.35 TB/s of HBM, 67 TFLOP/s
-f32 outside the tensor cores, 989 TFLOP/s bf16 on the tensor cores.
+A bound is the least time the card could take for a kernel's work: the
+larger of its bytes (each input read once, each output written once) over
+3.35 TB/s of HBM, and its operations over the tensor cores' rate. An f32
+kernel is held to f32 accuracy, which the tensor cores give as 3xTF32:
+three TF32 passes at 495 TFLOP/s, so 3 * operations / 495e12 s. bf16 runs
+one pass at 989 TFLOP/s. (H100 SXM published peaks.)
+
+--sweep-stage-tiles times every block launch of the three stages at every
+tile side whose shared memory fits, each checked against the plain block,
+and marks the side the kernel's tile rule picks; it replaces phase 3 and prints no
+result line.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import os
@@ -36,7 +47,9 @@ NPZ = os.path.join(ROOT, "yolo_nano_tpu_torch", "assets", "bench_coco416.npz")
 BATCH = 32
 SIZE = 416
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}
+SMEM_MAX = 227 * 1024  # shared memory one block may use on sm_90
+# operations per second at the working precision: f32 as 3xTF32
+EFFECTIVE_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
 OPERATING_POINTS = {
     "serving": dict(conf_thresh=0.1, nms_thresh=0.45, pre_topk=128),
     "eval_strict": dict(conf_thresh=0.001, pre_topk=512, max_det=128),
@@ -116,7 +129,7 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def bound(nbytes: float, flops: float, dtype) -> tuple:
     """(bound ms, 'bytes' or 'operations'): the larger of the two times."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    t_ops = flops / EFFECTIVE_FLOPS[dtype] * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -239,7 +252,8 @@ def _stage_cost(x, blocks):
     flops, wbytes = 0, 0
     for blk in blocks:
         c2 = blk["pw1_w"].shape[1]
-        wbytes += nbytes(*(t for k, t in blk.items() if k != "stride"))
+        wbytes += nbytes(*(t for k, t in blk.items()
+                           if k != "stride" and not k.endswith("_pad")))
         if blk["stride"] == 2:
             ho, wo = (h + 1) // 2, (w + 1) // 2
             po, pi = b * ho * wo, b * h * w
@@ -249,6 +263,28 @@ def _stage_cost(x, blocks):
         else:
             flops += b * h * w * (4 * c2 * c2 + 2 * 9 * c2)
     return flops, wbytes
+
+
+def check_against_f64(tag, x, blocks, got, want) -> tuple:
+    """The kernel's and the plain version's (cuDNN f32) max abs error
+    against the stage run in f64 on the same input. The kernel sums in
+    another order than cuDNN, so its error against cuDNN alone cannot tell
+    order from lost precision; it must stay within 4x cuDNN's own."""
+    from yolo_nano_tpu_torch.ops.kernels.fused_stage import fused_stage_plain
+
+    blocks64 = [{k: v if k == "stride" else v.double() for k, v in b.items()}
+                for b in blocks]
+    exact = fused_stage_plain(x.double(), blocks64)
+    scale = exact.abs().max().item()
+    err = (got.double() - exact).abs().max().item()
+    plain_err = (want.double() - exact).abs().max().item()
+    print(f"    against f64: kernel {err:.3g} ({err / scale:.3g} of max|ref|)"
+          f", cuDNN f32 {plain_err:.3g} ({plain_err / scale:.3g}), ratio "
+          f"{err / plain_err:.3g}")
+    if not err <= 4 * plain_err:
+        raise AssertionError(f"{tag}: kernel error against f64 {err} is over "
+                             f"4x cuDNN f32's {plain_err}")
+    return err, plain_err
 
 
 def phase_fused_stage(model, images):
@@ -270,10 +306,12 @@ def phase_fused_stage(model, images):
             got = fused_stage(x, blocks)
             tag = f"{name} {tuple(x.shape)}→{tuple(want.shape)}"
             err = check_close(tag, got, want, torch.float32)
+            err64, plain_err64 = check_against_f64(tag, x, blocks, got, want)
             flops, wbytes = _stage_cost(x, blocks)
             b_ms, b_by = bound(nbytes(x, want) + wbytes, flops, torch.float32)
             xx = x
-            row = dict(shape=tag, max_abs_err=err,
+            row = dict(shape=tag, max_abs_err=err, err_vs_f64=err64,
+                       plain_err_vs_f64=plain_err64,
                        ms=time_ms(lambda: fused_stage(xx, blocks)),
                        plain_ms=time_ms(lambda: fused_stage_plain(xx, blocks)),
                        library_ms=None, bound_ms=b_ms, bound_by=b_by,
@@ -284,6 +322,48 @@ def phase_fused_stage(model, images):
             rows.append(row)
             x = want  # chain on the plain output
     return rows
+
+
+def sweep_stage_tiles(model, images):
+    """Every block launch of stages 2/3/4 at every tile side that fits, on
+    the main path's activations: kernel ms, each output checked against the
+    plain block. '*' marks block_tile's pick."""
+    from yolo_nano_tpu_torch.ops.kernels.fused_stage import (
+        _launch_block, _lib, block_plain, block_tile, prepare_stage)
+    from yolo_nano_tpu_torch.ops.nn import max_pool_3x3_s2
+
+    print(f"[sweep] fused_stage block ms by tile side, batch {BATCH}")
+    lib = _lib()
+    bb = model.backbone
+    picked = best = 0.0
+    with torch.inference_mode():
+        x = max_pool_3x3_s2(bb.conv1(images.permute(0, 3, 1, 2)))
+        x = x.contiguous(memory_format=torch.channels_last)
+        for name in ("stage2", "stage3", "stage4"):
+            for i, w in enumerate(prepare_stage(getattr(bb, name))):
+                b, cin, h, wd = x.shape
+                s, c2 = w["stride"], w["pw1_w"].shape[1]
+                ho, wo = (h - 1) // s + 1, (wd - 1) // s + 1
+                want = block_plain(x, w)
+                pick = block_tile(s, cin, c2, b, ho, wo)
+                times = {}
+                for tile in range(1, 17):
+                    if lib.shuffle_block_smem_bytes(tile, s, cin,
+                                                    c2) > SMEM_MAX:
+                        continue
+                    check_close(f"{name}[{i}] tile {tile}",
+                                _launch_block(lib, x, w, tile), want,
+                                torch.float32)
+                    times[tile] = time_ms(
+                        lambda: _launch_block(lib, x, w, tile), iters=10)
+                sides = ", ".join(f"{t}{'*' if t == pick else ''} {ms:.4f}"
+                                  for t, ms in times.items())
+                print(f"  {name}[{i}] {tuple(x.shape)} stride {s}: {sides}")
+                picked += times[pick]
+                best += min(times.values())
+                x = want
+    print(f"  summed over the 16 launches: block_tile's picks {picked:.4f} ms,"
+          f" the fastest side of each {best:.4f} ms")
 
 
 @contextlib.contextmanager
@@ -320,6 +400,23 @@ def read_counts():
                 fused_stage=fused_stage.launches)
 
 
+def check_detections(point, got, plain, tol=1e-4):
+    """The kernel path's detections against the plain-version predict, slot
+    for slot: valid and classes equal, scores and boxes within tol. A
+    failure names the first image and slot that differ, with both scores."""
+    b, s, c, v = got
+    pb, ps, pc, pv = plain
+    bad = ((v != pv) | (c != pc) | (np.abs(s - ps) > tol)
+           | (np.abs(b - pb).max(-1) > tol))
+    if bad.any():
+        img, k = np.argwhere(bad)[0]
+        raise AssertionError(
+            f"{point}: {int(bad.sum())} slots differ from the plain-version "
+            f"predict; first image {img} slot {k}: class {c[img, k]} score "
+            f"{s[img, k]:.9g} valid {v[img, k]}, plain class {pc[img, k]} "
+            f"score {ps[img, k]:.9g} valid {pv[img, k]}")
+
+
 def phase_main_path(images_np):
     from yolo_nano_tpu_torch.models.yolo_nano import (postprocess_scored,
                                                       scores_from_features)
@@ -347,14 +444,7 @@ def phase_main_path(images_np):
         with plain_kernels():
             plain = fn(images_np)
         got = outs[point]
-        if not (np.array_equal(got[3], plain[3])
-                and np.array_equal(got[2], plain[2])):
-            raise AssertionError(f"{point}: valid/classes differ from the "
-                                 "plain-version predict")
-        for name, i in (("scores", 1), ("boxes", 0)):
-            d = float(np.abs(got[i] - plain[i]).max())
-            if d > 1e-4:
-                raise AssertionError(f"{point}: {name} differ by {d}")
+        check_detections(point, got, plain)
         b, s, c, v = got
         if b.shape != (BATCH, fn.cfg.max_detections, 4) or not (
                 np.isfinite(b).all() and np.isfinite(s).all()):
@@ -417,9 +507,19 @@ def kernel_row(name, rows, per_fwd, launches, replaces):
 
 
 def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--sweep-stage-tiles", action="store_true",
+                        help="time every fitting tile side of each stage "
+                        "block launch instead of the main path")
+    args = parser.parse_args()
     card = phase_device_and_build()
     images_np = render_scenes(BATCH, SIZE)
     model = _trained_model()
+    if args.sweep_stage_tiles:
+        phase_fused_stage(model, torch.from_numpy(images_np).cuda())
+        sweep_stage_tiles(model, torch.from_numpy(images_np).cuda())
+        print(card)
+        return
     with torch.inference_mode():
         dw_rows = phase_fused_dw_pw(model)
     stage_rows = phase_fused_stage(model, torch.from_numpy(images_np).cuda())

@@ -109,6 +109,7 @@ def _random_stage(gen, cin, cout, n_blocks):
 @pytest.mark.parametrize("cin,cout,n,hw", [
     (24, 116, 4, (104, 104)),   # stage2 widths, main-path size
     (116, 232, 3, (25, 23)),    # odd input to the stride-2 block
+    (116, 232, 8, (52, 52)),    # stage3 widths and depth, main-path size
     (232, 464, 2, (26, 26)),    # stage4 widths
     (24, 48, 2, (9, 14)),       # 0.5x widths, ragged tiles
 ])
@@ -131,3 +132,84 @@ def test_fused_stage_kernel_matches_plain(dev, cin, cout, n, hw):
     _close_f32(got, want)
     # the module path on the card goes through the kernel too
     _close_f32(stage(x), want)
+
+
+def test_fused_stage_error_against_f64_is_like_cudnn_f32(dev):
+    """The kernel's 3xTF32 products against the stage in f64, at stage 3's
+    widths and depth: no more than 4x the error of the plain stage in f32
+    (cuDNN). Its error against cuDNN alone cannot tell summation order from
+    lost precision; this can."""
+    from yolo_nano_tpu_torch.ops.kernels.fused_stage import (
+        fused_stage, fused_stage_plain, prepare_stage)
+
+    g = torch.Generator().manual_seed(3)
+    stage = _random_stage(g, 116, 232, 8).to(dev)
+    blocks = prepare_stage(stage)
+    x = torch.relu(_randn(g, 2, 52, 52, 116)).permute(0, 3, 1, 2).to(dev)
+    blocks64 = [{k: v if k == "stride" else v.double() for k, v in b.items()}
+                for b in blocks]
+    exact = fused_stage_plain(x.double(), blocks64)
+    err_kernel = (fused_stage(x, blocks).double() - exact).abs().max().item()
+    err_cudnn = (fused_stage_plain(x, blocks).double()
+                 - exact).abs().max().item()
+    assert err_kernel <= 4 * err_cudnn, (err_kernel, err_cudnn)
+
+
+@pytest.mark.parametrize("cin,cout", [(116, 232), (116, 116)])
+def test_fused_stage_takes_an_unaligned_input(dev, cin, cout):
+    """x at a storage offset of one float (channels_last contiguous, not
+    16-byte aligned): the stride-2 block (a whole stage) and a stride-1
+    block on their own read it without the 16-byte copies."""
+    from yolo_nano_tpu_torch.ops.kernels.fused_stage import (
+        _launch_block, _lib, block_plain, fused_stage, fused_stage_plain,
+        prepare_stage)
+
+    g = torch.Generator().manual_seed(4)
+    blocks = prepare_stage(_random_stage(g, cin, cout, 2).to(dev))
+    for x_cin, run, plain in ((cin, lambda x: fused_stage(x, blocks),
+                               lambda x: fused_stage_plain(x, blocks)),
+                              (cout, lambda x: _launch_block(_lib(), x,
+                                                             blocks[1]),
+                               lambda x: block_plain(x, blocks[1]))):
+        want_in = torch.relu(_randn(g, 2, 13, 11, x_cin)).to(dev)
+        buf = torch.zeros(want_in.numel() + 1, device=dev)
+        x = buf[1:].view(want_in.shape).permute(0, 3, 1, 2)
+        x.copy_(want_in.permute(0, 3, 1, 2))
+        assert x.is_contiguous(memory_format=torch.channels_last)
+        assert x.data_ptr() % 16
+        got = run(x)
+        torch.cuda.synchronize()
+        _close_f32(got, plain(x))
+
+
+def test_block_tiles_at_main_path_widths(dev):
+    """The kernel's tile rule and shared-memory layout
+    (shuffle_block_tile, shuffle_block_smem_bytes). (stride, Cin, c2,
+    output side) of the 1.0x stages at 416 px, batch 32 → tile side; the
+    buffers fit, and pw1's halo recompute (region rows over output pixels)
+    is below the earlier 28 KB rule's ×1.78, ×2.25 and ×4.00 at stride 1."""
+    from yolo_nano_tpu_torch.ops.kernels.fused_stage import _lib, block_tile
+
+    smem_max = 227 * 1024  # shared memory one block may use on sm_90
+    smem = _lib().shuffle_block_smem_bytes
+    want = {(2, 24, 58, 52): 11, (1, 116, 58, 52): 13, (2, 116, 116, 26): 7,
+            (1, 232, 116, 26): 13, (2, 232, 232, 13): 5, (1, 464, 232, 13): 7}
+    halo = {}
+    for (stride, cin, c2, side), tile in want.items():
+        assert block_tile(stride, cin, c2, 32, side, side) == tile
+        assert smem(tile, stride, cin, c2) <= smem_max
+        if stride == 1:
+            halo[c2] = (tile + 2) ** 2 / tile ** 2
+    assert halo[58] < 1.78 and halo[116] < 2.25 and halo[232] < 4.0
+    # every side whose buffers fit is a candidate
+    assert smem(5, 2, 232, 232) <= smem_max < smem(6, 2, 232, 232)
+    # the layout: offsets (81 region cells + 49 tile pixels → 132 ints);
+    # region, 96 rows at 232 + 4; depthwise out, 64 rows at 232 + 4; two
+    # 16-row weight chunks at 232 (29 tiles of 8, odd). At c2 = 58 the chunk
+    # stride is 64 + 8 (8 tiles, even); stride 2 sizes D for max(Cin, c2)
+    assert smem(7, 1, 464, 232) == 4 * 132 + 4 * (
+        96 * 236 + 64 * 236 + 2 * 16 * 232)
+    assert smem(8, 2, 24, 58) == 4 * 356 + 4 * (
+        304 * 68 + 64 * 68 + 2 * 16 * 72)
+    assert smem(2, 2, 240, 232) == 4 * 32 + 4 * (
+        32 * 244 + 16 * 244 + 2 * 16 * 232)

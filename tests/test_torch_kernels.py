@@ -141,13 +141,91 @@ def test_prepare_stage_layouts_and_checks(folded_backbone):
         tfs.fused_stage(torch.zeros(1, 116, 4, 4, dtype=torch.float64), blocks)
 
 
-def test_block_tiles_at_main_path_widths():
-    """(stride, Cin, c2) of the 1.0x stages → tile side, buffers in budget."""
-    want = {(2, 24, 58): 4, (1, 116, 58): 6, (2, 116, 116): 3,
-            (1, 232, 116): 4, (2, 232, 232): 2, (1, 464, 232): 2}
-    for (stride, cin, c2), tile in want.items():
-        assert tfs.block_tile(stride, cin, c2) == tile
-        assert tfs.smem_bytes(tile, stride, cin, c2) <= tfs.SMEM_BUDGET
-        assert tfs.smem_bytes(tile + 1, stride, cin, c2) > tfs.SMEM_BUDGET
-    # the layout of fused_stage.cu: offsets, max(pw1 region, branch1 dw), dw
-    assert tfs.smem_bytes(2, 2, 232, 232) == 4 * 28 + 4 * (25 * 232 + 4 * 232)
+def test_launch_block_refuses_unsupported_widths():
+    """The wrapper's checks before any launch: the gemm's warps cover an
+    even c2 up to 512, a stride-1 block takes Cin = 2·c2, and pw1's rows
+    match x's channels. (The tile rule and shared-memory layout are the
+    kernel's own, tested on the card.)"""
+    for c2 in (520, 57):
+        x = torch.zeros(1, 2 * c2, 4, 4)
+        with pytest.raises(ValueError, match="even c2 up to 512"):
+            tfs._launch_block(None, x, {"stride": 1,
+                                        "pw1_w": torch.zeros(c2, c2)})
+    with pytest.raises(ValueError, match="Cin = 2"):
+        tfs._launch_block(None, torch.zeros(1, 100, 4, 4),
+                          {"stride": 1, "pw1_w": torch.zeros(58, 58)})
+    with pytest.raises(ValueError, match="pw1 takes 24 channels"):
+        tfs._launch_block(None, torch.zeros(1, 32, 4, 4),
+                          {"stride": 2, "pw1_w": torch.zeros(24, 58)})
+
+
+def test_prepare_stage_pads_pointwise_weights(folded_backbone):
+    """The kernel's pointwise weights: the f32 weights, then zeros up to
+    multiples of 8 rows and columns; the plain version's stay as they are."""
+    _, model = folded_backbone
+    for name, cin, c2 in (("stage2", 24, 58), ("stage3", 116, 116)):
+        blocks = tfs.prepare_stage(getattr(model, name))
+        for i, blk in enumerate(blocks):
+            shapes = {"pw1_w": (cin if i == 0 else c2, c2), "pw2_w": (c2, c2)}
+            if i == 0:
+                shapes["b1pw_w"] = (cin, c2)
+            else:
+                assert "b1pw_w_pad" not in blk
+            for key, (k, n) in shapes.items():
+                w, wp = blk[key], blk[key + "_pad"]
+                assert tuple(w.shape) == (k, n)
+                assert tuple(wp.shape) == (-(-k // 8) * 8, -(-n // 8) * 8)
+                assert wp.is_contiguous() and wp.dtype == torch.float32
+                assert torch.equal(wp[:k, :n], w)
+                assert not wp[k:].any() and not wp[:, n:].any()
+
+
+def _tf32(a: np.ndarray) -> np.ndarray:
+    """cvt.rna.tf32.f32: keep 10 mantissa bits, to nearest, ties away from
+    zero (add half of the dropped range to the magnitude, then cut)."""
+    bits = np.ascontiguousarray(a, np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(
+        np.float32)
+
+
+@pytest.fixture(scope="module")
+def trained_stage_weights():
+    from yolo_nano_tpu_torch.convert import load_model
+
+    npz = __file__.rsplit("/tests/", 1)[0] + (
+        "/yolo_nano_tpu_torch/assets/bench_coco416.npz")
+    model, _, _ = load_model(npz)
+    return {name: tfs.prepare_stage(getattr(model.backbone, name))
+            for name in ("stage2", "stage3", "stage4")}
+
+
+@pytest.mark.parametrize("stage,key,k", [
+    ("stage2", "pw1_w", 24),    # stride-2 pw1, Cin 24
+    ("stage2", "pw2_w", 64),    # c2 58, padded to 64
+    ("stage3", "pw2_w", 120),   # c2 116, padded to 120
+    ("stage4", "pw2_w", 232),
+])
+def test_tf32_split_product_error_at_stage_widths(trained_stage_weights,
+                                                  stage, key, k):
+    """Why the kernel's products take three TF32 passes. On the trained
+    stage weights (zero-padded as the kernel takes them) and seeded ReLU
+    activations, with every product summed in f64 so that only the operand
+    rounding shows: the 3-pass split a_lo·b_hi + a_hi·b_lo + a_hi·b_hi is
+    within 1e-6·max|ref| of the f64 product, and a single TF32 pass is more
+    than 1e-4·max|ref| off, past the f32 tolerance of the stage checks."""
+    blk = trained_stage_weights[stage][1 if key == "pw2_w" else 0]
+    w = blk[key + "_pad"].numpy()
+    assert w.shape[0] == k
+    rng = np.random.default_rng(k)
+    a = np.maximum(rng.normal(size=(256, k)), 0).astype(np.float32)
+    a[:, blk[key].shape[0]:] = 0  # the kernel's zero pad columns
+    a_hi, w_hi = _tf32(a), _tf32(w)
+    a_lo, w_lo = _tf32(a - a_hi), _tf32(w - w_hi)
+    f64 = lambda m: m.astype(np.float64)  # noqa: E731
+    ref = f64(a) @ f64(w)
+    three = (f64(a_lo) @ f64(w_hi) + f64(a_hi) @ f64(w_lo)
+             + f64(a_hi) @ f64(w_hi))
+    one = f64(a_hi) @ f64(w_hi)
+    scale = np.abs(ref).max()
+    assert np.abs(three - ref).max() <= 1e-6 * scale
+    assert np.abs(one - ref).max() > 1e-4 * scale

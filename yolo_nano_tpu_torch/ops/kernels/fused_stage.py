@@ -9,12 +9,16 @@ out[2j+1] = right[j].
 
 `prepare_stage` only reshapes a folded stage's weights into the kernel's
 layouts: pointwise [Cin, Cout], depthwise [9, C] (tap-major), biases [C],
-all f32 and contiguous. x is [B, C, H, W] f32 in channels_last memory.
+all f32 and contiguous. The kernel takes each pointwise weight zero-padded
+to multiples of 8 rows and columns (`*_pad`, the m16n8k8 products' K and N);
+the plain version takes the weights as they are. x is [B, C, H, W] f32 in
+channels_last memory.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, List
 
 import torch
@@ -23,8 +27,22 @@ import torch.nn.functional as F
 from yolo_nano_tpu_torch.ops.kernels.build import check, load
 from yolo_nano_tpu_torch.ops.nn import channel_shuffle
 
-_WEIGHTS = ("pw1_w", "pw1_b", "dw_w", "dw_b", "pw2_w", "pw2_b",
-            "b1dw_w", "b1dw_b", "b1pw_w", "b1pw_b")
+# the kernel's weight arguments, in the order of shuffle_block_f32
+_WEIGHTS = ("pw1_w_pad", "pw1_b", "dw_w", "dw_b", "pw2_w_pad", "pw2_b",
+            "b1dw_w", "b1dw_b", "b1pw_w_pad", "b1pw_b")
+C2_MAX = 512  # the gemm's 16 warps cover at most 64 n8 tiles
+
+
+def _round_up(v: int, m: int) -> int:
+    return (v + m - 1) // m * m
+
+
+def _pad_pw(w: torch.Tensor) -> torch.Tensor:
+    """[K, N] pointwise weight → [round8(K), round8(N)], zeros appended."""
+    k, n = w.shape
+    out = w.new_zeros(_round_up(k, 8), _round_up(n, 8))
+    out[:k, :n] = w
+    return out
 
 
 def _pw(unit) -> tuple:
@@ -58,6 +76,9 @@ def prepare_stage(blocks) -> List[Dict[str, torch.Tensor]]:
         if i == 0:
             w["b1dw_w"], w["b1dw_b"] = _dw(blk.branch1["dw"])
             w["b1pw_w"], w["b1pw_b"] = _pw(blk.branch1["pw"])
+        for name in ("pw1_w", "pw2_w", "b1pw_w"):
+            if name in w:
+                w[name + "_pad"] = _pad_pw(w[name])
         out.append(w)
     return out
 
@@ -95,49 +116,54 @@ def fused_stage_plain(x: torch.Tensor, blocks) -> torch.Tensor:
     return x
 
 
-# At 40 registers a thread, an SM holds 6 blocks of 256 threads; 28 KB of
-# shared memory per block lets all 6 fit there too. Many resident blocks
-# hide the latency of the f32 product loops, which outweighs recomputing
-# pw1 on the halo of a small tile (PERF.md, tile size of the stage kernel).
-SMEM_BUDGET = 28 * 1024
+@functools.lru_cache(maxsize=None)
+def _lib():
+    """The built kernel: shuffle_block_f32 launches one block;
+    shuffle_block_tile and shuffle_block_smem_bytes are its tile rule and
+    shared-memory layout, computed on the host."""
+    lib = load("fused_stage")
+    lib.shuffle_block_f32.argtypes = ([ctypes.c_void_p] * 2
+                                      + [ctypes.c_int] * 7
+                                      + [ctypes.c_void_p] * 11)
+    lib.shuffle_block_f32.restype = ctypes.c_int
+    lib.shuffle_block_tile.argtypes = [ctypes.c_int] * 6
+    lib.shuffle_block_tile.restype = ctypes.c_int
+    lib.shuffle_block_smem_bytes.argtypes = [ctypes.c_int] * 4
+    lib.shuffle_block_smem_bytes.restype = ctypes.c_size_t
+    return lib
 
 
-def smem_bytes(tile: int, stride: int, cin: int, c2: int) -> int:
-    """Shared memory of one thread block (the layout in fused_stage.cu):
-    region offsets, pw1 over the region (or branch1's depthwise), dw out."""
-    r = (tile - 1) * stride + 3
-    a = max(r * r * c2, tile * tile * cin if stride == 2 else 0)
-    return 4 * ((r * r + 3) // 4 * 4) + 4 * (a + tile * tile * c2)
-
-
-def block_tile(stride: int, cin: int, c2: int) -> int:
-    """Output tile side: the largest up to 8 whose buffers fit SMEM_BUDGET."""
-    tile = 8
-    while tile > 1 and smem_bytes(tile, stride, cin, c2) > SMEM_BUDGET:
-        tile -= 1
+@functools.lru_cache(maxsize=None)
+def block_tile(stride: int, cin: int, c2: int, batch: int, ho: int,
+               wo: int) -> int:
+    """Output tile side of one block launch, as the kernel's
+    shuffle_block_tile picks it (csrc/fused_stage.cu: a cost model of the
+    gemm rounds and waves, among the sides whose shared memory fits).
+    chip_smoke.py --sweep-stage-tiles times every side against it."""
+    tile = _lib().shuffle_block_tile(stride, cin, c2, batch, ho, wo)
+    if tile < 1:
+        raise ValueError(f"no tile of a stride-{stride} block with Cin {cin}, "
+                         f"c2 {c2} fits in shared memory")
     return tile
 
 
-def _lib():
-    fn = load("fused_stage").shuffle_block_f32
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
-                   + [ctypes.c_void_p] * 11)
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _launch_block(fn, x, w):
+def _launch_block(lib, x, w, tile=None):
     b, cin, h, wd = x.shape
     c2 = w["pw1_w"].shape[1]
     k1 = cin if w["stride"] == 2 else cin // 2
+    if c2 > C2_MAX or c2 % 2:
+        raise ValueError(f"the stage kernel takes an even c2 up to {C2_MAX}, "
+                         f"got {c2}")
     if w["stride"] == 1 and cin != 2 * c2:
         raise ValueError(f"stride-1 block needs Cin = 2·{c2}, got {cin}")
     if w["pw1_w"].shape[0] != k1:
         raise ValueError(f"pw1 takes {w['pw1_w'].shape[0]} channels, x "
                          f"gives {k1}")
     s = w["stride"]
-    tile = block_tile(s, cin, c2)
-    out = torch.empty((b, 2 * c2, (h - 1) // s + 1, (wd - 1) // s + 1),
+    ho, wo = (h - 1) // s + 1, (wd - 1) // s + 1
+    if tile is None:
+        tile = block_tile(s, cin, c2, b, ho, wo)
+    out = torch.empty((b, 2 * c2, ho, wo),
                       dtype=torch.float32, device=x.device,
                       memory_format=torch.channels_last)
     ptrs = []
@@ -147,12 +173,13 @@ def _launch_block(fn, x, w):
             ptrs.append(None)
             continue
         if (t.device != x.device or t.dtype != torch.float32
-                or not t.is_contiguous()):
-            raise ValueError(f"{name} must be contiguous f32 on {x.device}")
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"{name} must be contiguous 16-byte aligned f32 "
+                             f"on {x.device}")
         ptrs.append(t.data_ptr())
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), out.data_ptr(), b, h, wd, cin, c2, s, tile, *ptrs,
-             stream)
+    err = lib.shuffle_block_f32(x.data_ptr(), out.data_ptr(), b, h, wd, cin,
+                                c2, s, tile, *ptrs, stream)
     fused_stage.launches += 1
     check(err, "fused_stage block")
     return out
@@ -173,10 +200,10 @@ def fused_stage(x: torch.Tensor, blocks) -> torch.Tensor:
         raise ValueError(f"fused_stage runs on CPU or CUDA, not {x.device}")
     if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("x must be channels_last contiguous")
-    fn = _lib()
+    lib = _lib()
     fused_stage.calls += 1
     for w in blocks:
-        x = _launch_block(fn, x, w)
+        x = _launch_block(lib, x, w)
     return x
 
 
