@@ -3,13 +3,17 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --sweep-stage-tiles   # phases 1-2, then the sweep
+    python3 chip_smoke.py --sweep-dw-pw-tiles   # phase 1, fused_dw_pw's
+                                                # phase 2, then its sweep
 
 Phases, each of which raises on failure (exit code non-zero, no result line):
   1. device and build: needs CUDA; prints the card's name and power limit,
      builds both kernels from yolo_nano_tpu_torch/csrc with nvcc;
   2. each kernel against its plain PyTorch version on the card, at the
      main-path shapes for batch 32 (1.0x COCO model, 416 px): max abs error
-     and tolerance, kernel / plain / library ms, and the bound;
+     and tolerance, kernel / plain / library ms, and the bound; each f32
+     row is also run in f64 and fails if the kernel's error against it is
+     over 4x cuDNN f32's;
   3. the main path: load_predictor on the committed folded artifact, 32
      rendered scenes, serving and eval-strict operating points; checks the
      kernel launch counts, the detections slot for slot against predict
@@ -27,7 +31,8 @@ one pass at 989 TFLOP/s. (H100 SXM published peaks.)
 --sweep-stage-tiles times every block launch of the three stages at every
 tile side whose shared memory fits, each checked against the plain block,
 and marks the side the kernel's tile rule picks; it replaces phase 3 and prints no
-result line.
+result line. --sweep-dw-pw-tiles does the same for fused_dw_pw at each head
+level over a grid of tiles (columns x rows).
 """
 
 from __future__ import annotations
@@ -111,13 +116,19 @@ def render_scenes(n: int, size: int, seed: int = 0) -> np.ndarray:
 # timing and bounds
 # ---------------------------------------------------------------------------
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean ms per call on the card, bracketed by CUDA events."""
+def time_ms(fn, iters: int = 20, warmup: int = 3, queued: bool = False
+            ) -> float:
+    """Mean ms per call on the card, bracketed by CUDA events. queued: the
+    calls are enqueued behind a 25 ms device sleep, so that the events time
+    the device's work alone and not the host's enqueue of it (a kernel of
+    20 us would otherwise time its Python wrapper)."""
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    if queued:
+        torch.cuda._sleep(50_000_000)  # cycles: 25 ms at 1.98 GHz
     start.record()
     for _ in range(iters):
         fn()
@@ -189,13 +200,30 @@ def _trained_model():
     return model.cuda()
 
 
+def dw_pw_f64(x, dw_w, dw_b, pw_w, pw_b, act_mid, act_out):
+    """fused_dw_pw's function in f64 (cuDNN on doubles): the reference the
+    f32 rows' errors are measured against."""
+    import torch.nn.functional as F
+
+    from yolo_nano_tpu_torch.ops.nn import activate
+
+    c = x.shape[1]
+    y = F.conv2d(x.double(), dw_w.double().permute(2, 0, 1).unsqueeze(1),
+                 dw_b.double(), padding=1, groups=c)
+    y = activate(y, act_mid)
+    y = F.conv2d(y, pw_w.double().t()[:, :, None, None], pw_b.double())
+    return activate(y, act_out)
+
+
 def phase_fused_dw_pw(model):
     """Head dw→pw pairs at 52², 26², 13² (C = 96), both act pairs, f32 and
-    bf16, with the trained head weights of each level."""
+    bf16, with the trained head weights of each level. The f32 rows are
+    also held to f64."""
     import torch.nn.functional as F
 
     from yolo_nano_tpu_torch.ops.kernels.fused_conv import (fused_dw_pw,
-                                                            fused_dw_pw_plain)
+                                                            fused_dw_pw_plain,
+                                                            tile_shape)
     from yolo_nano_tpu_torch.ops.nn import activate
 
     print(f"[2] fused_dw_pw vs plain, batch {BATCH}")
@@ -211,6 +239,7 @@ def phase_fused_dw_pw(model):
             w = pw_w.to(dtype)
             dw_conv = dw_w.permute(2, 0, 1).unsqueeze(1).to(dtype)
             pw_conv = w.t()[:, :, None, None]
+            tile = tile_shape(BATCH, hw, hw, c, cout, x.element_size())
             for act_mid, act_out in (("leaky", "leaky"), (None, "relu")):
                 def kern():
                     return fused_dw_pw(x, dw_w, dw_b, w, pw_b,
@@ -227,22 +256,76 @@ def phase_fused_dw_pw(model):
                                     act_out)
 
                 tag = (f"{hw}x{hw} {str(dtype)[6:]} "
-                       f"{act_mid or 'none'}/{act_out}")
-                err = check_close(tag, kern(), plain(), dtype)
-                out = kern()
+                       f"{act_mid or 'none'}/{act_out} tile {tile[0]}x{tile[1]}")
+                out, want = kern(), plain()
+                err = check_close(tag, out, want, dtype)
+                row = dict(shape=tag, max_abs_err=err)
+                if dtype == torch.float32:
+                    row["err_vs_f64"], row["plain_err_vs_f64"] = (
+                        check_against_f64(tag, dw_pw_f64(
+                            x, dw_w, dw_b, w, pw_b, act_mid, act_out),
+                            out, want))
                 px = BATCH * hw * hw
                 flops = px * (2 * 9 * c + 2 * c * cout)
                 b_ms, b_by = bound(nbytes(x, dw_w, dw_b, w, pw_b, out), flops,
                                    dtype)
-                row = dict(shape=tag, max_abs_err=err, ms=time_ms(kern),
-                           plain_ms=time_ms(plain), library_ms=time_ms(library),
-                           bound_ms=b_ms, bound_by=b_by, dtype=str(dtype)[6:],
+                row.update(ms=time_ms(kern, queued=True),
+                           plain_ms=time_ms(plain, queued=True),
+                           library_ms=time_ms(library, queued=True),
+                           bound_ms=b_ms,
+                           bound_by=b_by, dtype=str(dtype)[6:],
                            acts=f"{act_mid}/{act_out}")
                 print(f"    kernel {row['ms']:.4f} ms, plain "
                       f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f}"
                       f" ms, bound {b_ms * 1e3:.2f} us ({b_by})")
                 rows.append(row)
     return rows
+
+
+DW_PW_SIDES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 16, 18, 20, 26)
+
+
+def sweep_dw_pw_tiles(model):
+    """fused_dw_pw at 52², 26², 13² (f32, leaky/leaky, the trained pair-0
+    head weights) at every tile of DW_PW_SIDES × DW_PW_SIDES that fits:
+    kernel ms, each output checked against the plain version. '*' marks
+    tile_shape's pick; one JSON line per level holds every time."""
+    from yolo_nano_tpu_torch.ops.kernels.fused_conv import (
+        _launch, _lib, fused_dw_pw_plain, tile_shape)
+
+    print(f"[sweep] fused_dw_pw ms by tile (columns x rows), batch {BATCH}")
+    lib = _lib()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    picked = best = 0.0
+    for level, hw in enumerate((SIZE // 8, SIZE // 16, SIZE // 32)):
+        dw_w, dw_b, pw_w, pw_b = getattr(model, f"head{level}")._pairs()[0]
+        c, cout = pw_w.shape
+        x = torch.randn(BATCH, hw, hw, c, device="cuda", generator=gen
+                        ).permute(0, 3, 1, 2)
+        args = (x, dw_w, dw_b, pw_w, pw_b, "leaky", "leaky")
+        want = fused_dw_pw_plain(*args[:5])
+        pick = tile_shape(BATCH, hw, hw, c, cout, 4)
+        grid = {(tw, th) for tw in DW_PW_SIDES for th in DW_PW_SIDES
+                if tw <= hw and th <= hw and lib.fused_dw_pw_smem_bytes(
+                    tw, th, c, cout, 4) <= SMEM_MAX}
+        times = {}
+        for tile in sorted(grid | {pick}):
+            check_close(f"{hw}x{hw} tile {tile[0]}x{tile[1]}",
+                        _launch(*args, tile=tile), want, torch.float32)
+            times[tile] = time_ms(lambda: _launch(*args, tile=tile),
+                                  iters=10, queued=True)
+        ranked = sorted(times.items(), key=lambda kv: kv[1])
+        top = ", ".join(f"{t[0]}x{t[1]}{'*' if t == pick else ''} {ms:.4f}"
+                        for t, ms in ranked[:8])
+        rank = [t for t, _ in ranked].index(pick) + 1
+        print(f"  {hw}x{hw}: fastest {top}; pick {pick[0]}x{pick[1]} "
+              f"{times[pick]:.4f} ms, rank {rank} of {len(times)}")
+        print(json.dumps({"level": hw, "ms_by_tile": {
+            f"{t[0]}x{t[1]}": ms for t, ms in times.items()}}))
+        picked += times[pick]
+        best += ranked[0][1]
+    print(f"  summed over the 3 levels: tile_shape's picks {picked:.4f} ms, "
+          f"the fastest tile of each {best:.4f} ms")
 
 
 def _stage_cost(x, blocks):
@@ -265,16 +348,11 @@ def _stage_cost(x, blocks):
     return flops, wbytes
 
 
-def check_against_f64(tag, x, blocks, got, want) -> tuple:
+def check_against_f64(tag, exact, got, want) -> tuple:
     """The kernel's and the plain version's (cuDNN f32) max abs error
-    against the stage run in f64 on the same input. The kernel sums in
-    another order than cuDNN, so its error against cuDNN alone cannot tell
-    order from lost precision; it must stay within 4x cuDNN's own."""
-    from yolo_nano_tpu_torch.ops.kernels.fused_stage import fused_stage_plain
-
-    blocks64 = [{k: v if k == "stride" else v.double() for k, v in b.items()}
-                for b in blocks]
-    exact = fused_stage_plain(x.double(), blocks64)
+    against the same function run in f64 on the same input. The kernels sum
+    in another order than cuDNN, so their error against cuDNN alone cannot
+    tell order from lost precision; it must stay within 4x cuDNN's own."""
     scale = exact.abs().max().item()
     err = (got.double() - exact).abs().max().item()
     plain_err = (want.double() - exact).abs().max().item()
@@ -306,14 +384,18 @@ def phase_fused_stage(model, images):
             got = fused_stage(x, blocks)
             tag = f"{name} {tuple(x.shape)}→{tuple(want.shape)}"
             err = check_close(tag, got, want, torch.float32)
-            err64, plain_err64 = check_against_f64(tag, x, blocks, got, want)
+            blocks64 = [{k: v if k == "stride" else v.double()
+                         for k, v in b.items()} for b in blocks]
+            err64, plain_err64 = check_against_f64(
+                tag, fused_stage_plain(x.double(), blocks64), got, want)
             flops, wbytes = _stage_cost(x, blocks)
             b_ms, b_by = bound(nbytes(x, want) + wbytes, flops, torch.float32)
             xx = x
             row = dict(shape=tag, max_abs_err=err, err_vs_f64=err64,
                        plain_err_vs_f64=plain_err64,
-                       ms=time_ms(lambda: fused_stage(xx, blocks)),
-                       plain_ms=time_ms(lambda: fused_stage_plain(xx, blocks)),
+                       ms=time_ms(lambda: fused_stage(xx, blocks), queued=True),
+                       plain_ms=time_ms(lambda: fused_stage_plain(xx, blocks),
+                                        queued=True),
                        library_ms=None, bound_ms=b_ms, bound_by=b_by,
                        launches_per_call=len(blocks))
             print(f"    kernel {row['ms']:.4f} ms ({len(blocks)} launches), "
@@ -355,7 +437,8 @@ def sweep_stage_tiles(model, images):
                                 _launch_block(lib, x, w, tile), want,
                                 torch.float32)
                     times[tile] = time_ms(
-                        lambda: _launch_block(lib, x, w, tile), iters=10)
+                        lambda: _launch_block(lib, x, w, tile), iters=10,
+                        queued=True)
                 sides = ", ".join(f"{t}{'*' if t == pick else ''} {ms:.4f}"
                                   for t, ms in times.items())
                 print(f"  {name}[{i}] {tuple(x.shape)} stride {s}: {sides}")
@@ -511,6 +594,9 @@ def main():
     parser.add_argument("--sweep-stage-tiles", action="store_true",
                         help="time every fitting tile side of each stage "
                         "block launch instead of the main path")
+    parser.add_argument("--sweep-dw-pw-tiles", action="store_true",
+                        help="time fused_dw_pw at a grid of tiles at each "
+                        "head level instead of the main path")
     args = parser.parse_args()
     card = phase_device_and_build()
     images_np = render_scenes(BATCH, SIZE)
@@ -518,6 +604,12 @@ def main():
     if args.sweep_stage_tiles:
         phase_fused_stage(model, torch.from_numpy(images_np).cuda())
         sweep_stage_tiles(model, torch.from_numpy(images_np).cuda())
+        print(card)
+        return
+    if args.sweep_dw_pw_tiles:
+        with torch.inference_mode():
+            phase_fused_dw_pw(model)
+            sweep_dw_pw_tiles(model)
         print(card)
         return
     with torch.inference_mode():

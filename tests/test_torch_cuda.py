@@ -3,9 +3,12 @@
 These tests need an NVIDIA GPU with nvcc (sm_90a) and skip elsewhere. They
 import only torch and numpy, so they run where JAX is not installed:
     python -m pytest tests/test_torch_cuda.py --noconftest -q
-Shapes include ragged tiles (sizes not a multiple of the 8x8 tile) and odd
-inputs to stride-2 blocks. Tolerances: f32 1e-4·max|ref| + 1e-5 (summation
-order differs); bf16 rtol 2e-2, atol 2e-2.
+Shapes include ragged tiles (sizes not a multiple of the tile), widths not
+a multiple of 8, more tiles than SMs (so fused_dw_pw's persistent blocks
+walk several tiles each) and odd inputs to stride-2 blocks. Tolerances: f32
+1e-4·max|ref| + 1e-5 (the tensor-core products sum in another order than
+cuDNN); bf16 rtol 2e-2, atol 2e-2; against f64, at most 4x the error of
+cuDNN in f32.
 """
 
 import numpy as np
@@ -37,7 +40,7 @@ def _randn(gen, *shape, scale=1.0):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("acts", [("leaky", "leaky"), (None, "relu")])
 @pytest.mark.parametrize("shape", [(3, 96, 13, 11), (2, 24, 8, 8),
-                                   (1, 40, 17, 5)])
+                                   (1, 40, 17, 5), (2, 20, 9, 7)])
 def test_fused_dw_pw_kernel_matches_plain(dev, dtype, acts, shape):
     from yolo_nano_tpu_torch.ops.kernels.fused_conv import (fused_dw_pw,
                                                             fused_dw_pw_plain)
@@ -73,6 +76,99 @@ def test_fused_dw_pw_refuses_nchw_contiguous(dev):
         fused_dw_pw(x, torch.zeros(3, 3, 8, device=dev),
                     torch.zeros(8, device=dev), torch.zeros(8, 8, device=dev),
                     torch.zeros(8, device=dev))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,tile", [
+    ((3, 96, 13, 11), (1, 2)),     # 231 tiles: each block walks several
+    ((4, 40, 30, 28), (5, 3)),     # 240 ragged tiles
+    ((8, 96, 52, 52), (13, 9)),    # main-path width and tile, 192 tiles
+    ((2, 20, 9, 7), (4, 4)),       # C, Cout not multiples of 8
+    ((1, 19, 6, 10), (3, 4)),      # odd C: no 16-byte copies or stores
+])
+def test_fused_dw_pw_kernel_at_given_tiles(dev, dtype, shape, tile):
+    """The launch at a given tile, whatever the tile rule picks."""
+    from yolo_nano_tpu_torch.ops.kernels.fused_conv import (_launch,
+                                                            fused_dw_pw_plain)
+
+    g = torch.Generator().manual_seed(5)
+    b, c, h, w = shape
+    cout = c + 8
+    x = _randn(g, b, h, w, c).permute(0, 3, 1, 2).to(dev, dtype)
+    args = (_randn(g, 3, 3, c, scale=0.2).to(dev),
+            _randn(g, c, scale=0.1).to(dev),
+            _randn(g, c, cout, scale=0.1).to(dev, dtype),
+            _randn(g, cout, scale=0.1).to(dev))
+    got = _launch(x, *args, "leaky", "leaky", tile=tile)
+    want = fused_dw_pw_plain(x, *args)
+    torch.cuda.synchronize()
+    if dtype == torch.float32:
+        _close_f32(got, want)
+    else:
+        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
+                                   atol=2e-2)
+
+
+@pytest.fixture(scope="module")
+def trained_model():
+    from yolo_nano_tpu_torch.convert import load_model
+
+    npz = __file__.rsplit("/tests/", 1)[0] + (
+        "/yolo_nano_tpu_torch/assets/bench_coco416.npz")
+    model, _, _ = load_model(npz)
+    return model
+
+
+@pytest.mark.parametrize("pair", [0, 1])
+def test_fused_dw_pw_on_trained_head_weights(dev, trained_model, pair):
+    """[2, 96, 52, 52] f32 through a trained head pair of level 0: within
+    the f32 tolerance of the plain version, and against the pair in f64 no
+    more than 4x the error of the plain version in f32 (cuDNN)."""
+    import torch.nn.functional as F
+
+    from yolo_nano_tpu_torch.ops.kernels.fused_conv import (fused_dw_pw,
+                                                            fused_dw_pw_plain)
+    from yolo_nano_tpu_torch.ops.nn import activate
+
+    dw_w, dw_b, pw_w, pw_b = (t.to(dev) for t in
+                              trained_model.head0._pairs()[pair])
+    g = torch.Generator().manual_seed(6)
+    x = _randn(g, 2, 52, 52, 96).permute(0, 3, 1, 2).to(dev)
+    got = fused_dw_pw(x, dw_w, dw_b, pw_w, pw_b)
+    want = fused_dw_pw_plain(x, dw_w, dw_b, pw_w, pw_b)
+    y = F.conv2d(x.double(), dw_w.double().permute(2, 0, 1).unsqueeze(1),
+                 dw_b.double(), padding=1, groups=96)
+    y = F.conv2d(activate(y, "leaky"), pw_w.double().t()[:, :, None, None],
+                 pw_b.double())
+    exact = activate(y, "leaky")
+    torch.cuda.synchronize()
+    _close_f32(got, want)
+    err_kernel = (got.double() - exact).abs().max().item()
+    err_cudnn = (want.double() - exact).abs().max().item()
+    assert err_kernel <= 4 * err_cudnn, (err_kernel, err_cudnn)
+
+
+def test_dw_pw_tiles_at_main_path_widths(dev):
+    """The kernel's tile rule and shared-memory layout (fused_dw_pw_tile,
+    fused_dw_pw_smem_bytes) at the heads' C = Cout = 96, batch 32, 416 px:
+    (side, element bytes) → (columns, rows); and the widths it refuses."""
+    from yolo_nano_tpu_torch.ops.kernels.fused_conv import _lib, tile_shape
+
+    smem = _lib().fused_dw_pw_smem_bytes
+    want = {(52, 4): (13, 9), (26, 4): (13, 7), (13, 4): (13, 4),
+            (52, 2): (18, 7), (26, 2): (26, 7), (13, 2): (13, 4)}
+    for (side, elem), tile in want.items():
+        assert tile_shape(32, side, side, 96, 96, elem) == tile
+        assert smem(*tile, 96, 96, elem) <= 227 * 1024
+    # weights 96 x 104; taps and biases 9·96 + 96 + 96; output 128 rows x
+    # 100; two regions of 15 x 11 cells x 96 channels
+    assert smem(13, 9, 96, 96, 4) == 4 * (96 * 104 + 1056 + 128 * 100) + 2 * (
+        11 * 15 * 96 * 4)
+    # C 20 → regions of 24 bf16 (16-byte rows); D at act_stride(28) = 36
+    assert smem(4, 4, 20, 28, 2) == 4 * (24 * 40 + 228 + 16 * 36) + 2 * (
+        36 * 24 * 2)
+    with pytest.raises(ValueError, match="do not fit"):
+        tile_shape(2, 8, 8, 256, 256, 4)
 
 
 def _random_stage(gen, cin, cout, n_blocks):

@@ -189,36 +189,50 @@ def _tf32(a: np.ndarray) -> np.ndarray:
 
 
 @pytest.fixture(scope="module")
-def trained_stage_weights():
+def trained_model():
     from yolo_nano_tpu_torch.convert import load_model
 
     npz = __file__.rsplit("/tests/", 1)[0] + (
         "/yolo_nano_tpu_torch/assets/bench_coco416.npz")
     model, _, _ = load_model(npz)
-    return {name: tfs.prepare_stage(getattr(model.backbone, name))
-            for name in ("stage2", "stage3", "stage4")}
+    return model
 
 
-@pytest.mark.parametrize("stage,key,k", [
+@pytest.mark.parametrize("part,key,k", [
     ("stage2", "pw1_w", 24),    # stride-2 pw1, Cin 24
     ("stage2", "pw2_w", 64),    # c2 58, padded to 64
     ("stage3", "pw2_w", 120),   # c2 116, padded to 120
     ("stage4", "pw2_w", 232),
+    ("head0", "pw0", 96),       # the head pairs of fused_dw_pw
+    ("head0", "pw1", 96),
+    ("head1", "pw0", 96),
+    ("head1", "pw1", 96),
+    ("head2", "pw0", 96),
+    ("head2", "pw1", 96),
 ])
-def test_tf32_split_product_error_at_stage_widths(trained_stage_weights,
-                                                  stage, key, k):
-    """Why the kernel's products take three TF32 passes. On the trained
-    stage weights (zero-padded as the kernel takes them) and seeded ReLU
-    activations, with every product summed in f64 so that only the operand
-    rounding shows: the 3-pass split a_lo·b_hi + a_hi·b_lo + a_hi·b_hi is
-    within 1e-6·max|ref| of the f64 product, and a single TF32 pass is more
-    than 1e-4·max|ref| off, past the f32 tolerance of the stage checks."""
-    blk = trained_stage_weights[stage][1 if key == "pw2_w" else 0]
-    w = blk[key + "_pad"].numpy()
-    assert w.shape[0] == k
+def test_tf32_split_product_error_at_stage_widths(trained_model, part, key,
+                                                  k):
+    """Why the kernels' f32 products take three TF32 passes. On the trained
+    pointwise weights of the stages (zero-padded as the kernel takes them)
+    and of the head pairs, and seeded activations (ReLU for a stage, leaky
+    for a head's mid activation), with every product summed in f64 so that
+    only the operand rounding shows: the 3-pass split
+    a_lo·b_hi + a_hi·b_lo + a_hi·b_hi is within 1e-6·max|ref| of the f64
+    product, and a single TF32 pass is more than 1e-4·max|ref| off, past the
+    f32 tolerance of the kernel checks."""
     rng = np.random.default_rng(k)
-    a = np.maximum(rng.normal(size=(256, k)), 0).astype(np.float32)
-    a[:, blk[key].shape[0]:] = 0  # the kernel's zero pad columns
+    a = rng.normal(size=(256, k))
+    if part.startswith("stage"):
+        blk = tfs.prepare_stage(getattr(trained_model.backbone, part))[
+            1 if key == "pw2_w" else 0]
+        w = blk[key + "_pad"].numpy()
+        a = np.maximum(a, 0).astype(np.float32)
+        a[:, blk[key].shape[0]:] = 0  # the kernel's zero pad columns
+    else:
+        pair = getattr(trained_model, part)._pairs()[int(key[-1])]
+        w = pair[2].detach().numpy()
+        a = np.where(a >= 0, a, 0.1 * a).astype(np.float32)
+    assert w.shape[0] == k
     a_hi, w_hi = _tf32(a), _tf32(w)
     a_lo, w_lo = _tf32(a - a_hi), _tf32(w - w_hi)
     f64 = lambda m: m.astype(np.float64)  # noqa: E731
@@ -229,3 +243,31 @@ def test_tf32_split_product_error_at_stage_widths(trained_stage_weights,
     scale = np.abs(ref).max()
     assert np.abs(three - ref).max() <= 1e-6 * scale
     assert np.abs(one - ref).max() > 1e-4 * scale
+
+
+def test_bf16_operands_pass_tf32_rounding_unchanged():
+    """Why the bf16 kernel takes one TF32 pass: a bf16 value (7 mantissa
+    bits) is exact in TF32 (10), so the split gives hi = x, lo = 0, and the
+    single pass a_hi·b_hi is the exact product. Seeded values over many
+    binades, with the extremes of the mantissa and signed zeros."""
+    rng = np.random.default_rng(7)
+    x = (rng.normal(size=4096) * np.exp2(rng.integers(-30, 30, 4096)))
+    x = np.concatenate([x, [0.0, -0.0, 1.0, -1.0, 1.9921875, -255.0,
+                            3.3895e38, 1.1755e-38]]).astype(np.float32)
+    b = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
+    assert not np.array_equal(b, x)  # the rounding to bf16 did something
+    hi = _tf32(b)
+    assert np.array_equal(hi.view(np.uint32), b.view(np.uint32))
+    assert not _tf32(b - hi).any()
+    # and a rounding f32 value is not exact: the f32 kernel needs 3 passes
+    assert not np.array_equal(_tf32(x), x)
+
+
+def test_fused_dw_pw_launch_refuses_wide_cout():
+    """The wrapper's check before any launch: the gemm's warps cover Cout
+    up to 512. (Widths whose weights do not fit in shared memory are the
+    kernel's tile rule's to refuse, tested on the card.)"""
+    x = torch.zeros(1, 8, 4, 4).contiguous(memory_format=torch.channels_last)
+    with pytest.raises(ValueError, match="Cout up to 512"):
+        tfc._launch(x, torch.zeros(3, 3, 8), torch.zeros(8),
+                    torch.zeros(8, 520), torch.zeros(520), "leaky", "leaky")

@@ -9,131 +9,422 @@
 // head: C = Cout = 96 at 52x52, 26x26 and 13x13 for a 416 input.
 //
 // What bounds it on this card: per output pixel it moves C inputs and Cout
-// outputs and does 2*9*C + 2*C*Cout operations: about 26 operations per byte
-// in f32 at C = 96 (52 in bf16), above the H100's balance of about 20 for
-// f32 outside the tensor cores (67 TFLOP/s over 3.35 TB/s). So the bound is
-// the f32 operation rate, provided the dw intermediate never goes to device
-// memory, which is what the fusion buys.
+// outputs and does 2*9*C + 2*C*Cout operations. Kept to f32 accuracy the
+// product runs as 3xTF32 on the tensor cores (three passes at 495 TFLOP/s):
+// at batch 32, 416 px the six calls of a forward move 174 MB (0.052 ms at
+// 3.35 TB/s) and take 3 * 4.6 GFLOP / 495 TFLOP/s = 0.028 ms of products.
+// The kernel is bound by bytes, provided the depthwise output never goes to
+// device memory (the fusion) and the input loads overlap the compute.
 //
-// Design: the TPU kernel kept a whole image per grid step in VMEM
-// (52*52*96*4 B ~ 1 MB); a Hopper block has at most 227 KB of shared memory.
-// So one thread block takes one 8x8 output tile of one image: it stages the
-// 10x10xC input tile with its 1-pixel halo (zero outside the image: that is
-// the pad 1) as f32 in shared memory, writes the 8x8xC depthwise result to a
-// second shared buffer, then runs the pointwise product from shared memory
-// with the weights read through L1/L2. At C = 96 that is 38 KB + 25 KB.
-// This is the simple, correct first design: the product runs on the f32
-// pipes, not the tensor cores.
+// What the design does about it:
+//   - the pointwise product goes through mma_tf32::gemm (3xTF32 mma.sync in
+//     f32, one TF32 pass in bf16, whose operands are exact in TF32), with the
+//     weights resident in shared memory: loaded once per block (by 16-byte
+//     cp.async in f32), converted to f32 and zero-padded to multiples of 8
+//     rows and columns there; the taps and biases sit beside them;
+//   - a persistent grid, one block of 16 warps per SM, walks the tw x th
+//     output tiles of all images; the next tile's input region arrives by
+//     cp.async into a second buffer while the current tile's depthwise,
+//     product and stores run;
+//   - the tile is picked by dw_pw_tile_cost below so that a tile's pixels
+//     fill whole gemm rounds (128 rows at Cout = 96) and the tiles spread
+//     evenly over the SMs; fitted to chip_smoke.py --sweep-dw-pw-tiles;
+//   - the depthwise stays on the CUDA cores, reading shared memory: a thread
+//     takes one channel of one tile row and slides its 3x3 window along the
+//     row, 3 loads per pixel;
+//   - outputs go back through shared memory (the product's epilogue writes
+//     over its own input rows) and leave in 16-byte stores.
+// What holds it back (PERF.md; tools/probe_dw_pw.py times each phase with
+// clock64 on the card): the product and its epilogue take about two thirds
+// of a tile's cycles, issuing the hi/lo splits of every fragment and the
+// f32 adds beside the mma.sync passes in every warp; the depthwise, the
+// fill and the stores run between barriers, not beside the product.
+//
+// Shared memory of a block, in this order:
+//   Ws:  round8(C) x w_stride(Cout) floats, the pointwise weights;
+//   par: 9*C taps, C depthwise biases, Cout pointwise biases (floats,
+//        rounded to 4);
+//   D:   rows16(tw*th) x act_stride(max(C, Cout)) floats: the depthwise
+//        output (the product's A operand, pad columns 0), then the output;
+//   two region buffers of (th+2) x (tw+2) cells x ldr elements of x's
+//        dtype, ldr = C rounded to 16 bytes, 0 outside the image (the pad 1).
+// At C = Cout = 96 in f32 with a 13 x 9 tile: 39,936 + 4,224 + 51,200 +
+// 2 x 63,360 = 222,080 bytes of the 232,448 a block may use.
+// Widths whose weights and smallest tile do not fit (C = Cout above 216)
+// are refused.
 
 #include <cstdint>
 
 #include "common.cuh"
+#include "mma_tf32.cuh"
 
 namespace {
 
-constexpr int kTile = 8;
-constexpr int kHalo = kTile + 2;
+using ynt::mma_tf32::act_stride;
+using ynt::mma_tf32::round_up;
+using ynt::mma_tf32::w_stride;
+
+constexpr int kThreads = ynt::mma_tf32::kWarps * 32;
+constexpr size_t kSmemMax = 227 * 1024;
+constexpr int kSMs = 132;  // streaming multiprocessors of an H100 SXM
+
+struct Layout {
+  int P, cells, ldr, ldd, w, par, d;  // w, par, d: floats; ldr: elements
+  size_t region;                      // bytes of one region buffer
+  __host__ __device__ Layout(int tw, int th, int C, int Cout, int elem) {
+    P = tw * th;
+    cells = (tw + 2) * (th + 2);
+    ldr = round_up(C, 16 / elem);
+    ldd = act_stride(C > Cout ? C : Cout);
+    w = round_up(C, 8) * w_stride(Cout);
+    par = round_up(10 * C + Cout, 4);  // 16-byte aligned buffers after it
+    d = round_up(P, 16) * ldd;
+    region = static_cast<size_t>(cells) * ldr * elem;
+  }
+  __host__ __device__ size_t bytes() const {
+    return sizeof(float) * (static_cast<size_t>(w) + par + d) + 2 * region;
+  }
+};
+
+// Calls f(cy, cx, k) for every cell (cy, cx) of a grid cols cells wide
+// (a region, the tile's pixels, the weight rows) and every k < per_cell,
+// item i = cell * per_cell + k spread over the block's threads; the indices
+// are walked without a division per step.
+template <typename F>
+__device__ __forceinline__ void for_each_cell(int cells, int cols,
+                                              int per_cell, F f) {
+  const int step = blockDim.x;
+  const int dk = step % per_cell;
+  const int dcy = step / per_cell / cols;
+  const int dcx = step / per_cell % cols;
+  int k = threadIdx.x % per_cell;
+  int cy = threadIdx.x / per_cell / cols;
+  int cx = threadIdx.x / per_cell % cols;
+  for (int i = threadIdx.x; i < cells * per_cell; i += step) {
+    f(cy, cx, k);
+    k += dk;
+    const int carry = k >= per_cell;
+    k -= carry * per_cell;
+    cx += dcx + carry;
+    cy += dcy;
+    if (cx >= cols) {
+      cx -= cols;
+      ++cy;
+    }
+  }
+}
+
+// 16 bytes of output from 16 bytes' worth of f32 values in shared memory.
+__device__ __forceinline__ void store16(float* dst, const float* src) {
+  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
+}
+__device__ __forceinline__ void store16(__nv_bfloat16* dst, const float* src) {
+  uint32_t u[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const __nv_bfloat162 v = __floats2bfloat162_rn(src[2 * i], src[2 * i + 1]);
+    u[i] = *reinterpret_cast<const uint32_t*>(&v);
+  }
+  *reinterpret_cast<uint4*>(dst) = make_uint4(u[0], u[1], u[2], u[3]);
+}
+
+// Depthwise 3x3 (+ bias, act_mid, rounded to T) of a (th+2) x (tw+2) region
+// into dst, rows16(tw*th) x round8(C) at row stride ldd, pad columns 0; w
+// [9][C] and b [C] in shared memory. A thread takes one channel of one
+// output row and slides the 3x3 window along it; neighbouring threads take
+// neighbouring channels.
+template <typename T>
+__device__ __forceinline__ void depthwise(const T* src, int ldr, int tw,
+                                          int th, int C, const float* w,
+                                          const float* b, int act_mid,
+                                          float* dst, int ldd) {
+  const int cp = round_up(C, 8);
+  const int rw = tw + 2;
+  const int row = rw * ldr;
+  for (int i = threadIdx.x; i < th * cp; i += blockDim.x) {
+    const int c = i % cp;
+    const int y = i / cp;
+    float* out = dst + y * tw * ldd + c;
+    if (c >= C) {
+      for (int px = 0; px < tw; ++px) out[px * ldd] = 0.f;
+      continue;
+    }
+    float tap[9];
+#pragma unroll
+    for (int k = 0; k < 9; ++k) tap[k] = w[k * C + c];
+    const float bias = b[c];
+    const T* s = src + y * row + c;
+    // window columns px (l), px+1 (m), px+2 (r); rows dy = 0, 1, 2
+    float l0 = ynt::to_float(s[0]), l1 = ynt::to_float(s[row]),
+          l2 = ynt::to_float(s[2 * row]);
+    float m0 = ynt::to_float(s[ldr]), m1 = ynt::to_float(s[row + ldr]),
+          m2 = ynt::to_float(s[2 * row + ldr]);
+    for (int px = 0; px < tw; ++px) {
+      const T* sr = s + (px + 2) * ldr;
+      const float r0 = ynt::to_float(sr[0]), r1 = ynt::to_float(sr[row]),
+                  r2 = ynt::to_float(sr[2 * row]);
+      float acc = 0.f;
+      acc = fmaf(l0, tap[0], acc);
+      acc = fmaf(m0, tap[1], acc);
+      acc = fmaf(r0, tap[2], acc);
+      acc = fmaf(l1, tap[3], acc);
+      acc = fmaf(m1, tap[4], acc);
+      acc = fmaf(r1, tap[5], acc);
+      acc = fmaf(l2, tap[6], acc);
+      acc = fmaf(m2, tap[7], acc);
+      acc = fmaf(r2, tap[8], acc);
+      acc = ynt::activate(acc + bias, act_mid);
+      out[px * ldd] = ynt::to_float(ynt::from_float<T>(acc));
+      l0 = m0, l1 = m1, l2 = m2;
+      m0 = r0, m1 = r1, m2 = r2;
+    }
+  }
+}
 
 template <typename T>
-__global__ void __launch_bounds__(ynt::kThreads)
+__global__ void __launch_bounds__(kThreads, 1)
     fused_dw_pw_kernel(const T* __restrict__ x, const float* __restrict__ dw_w,
                        const float* __restrict__ dw_b,
                        const T* __restrict__ pw_w,
                        const float* __restrict__ pw_b, T* __restrict__ out,
-                       int H, int W, int C, int Cout, int act_mid,
-                       int act_out, int tiles_x) {
-  extern __shared__ float smem[];
-  float* xs = smem;                      // [kHalo*kHalo][C]
-  float* mid = smem + kHalo * kHalo * C;  // [kTile*kTile][C]
+                       int B, int H, int W, int C, int Cout, int act_mid,
+                       int act_out, int tw, int th, bool vec_in,
+                       bool vec_w, bool vec_out) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Layout lay(tw, th, C, Cout, sizeof(T));
+  float* Ws = reinterpret_cast<float*>(smem);
+  float* par = Ws + lay.w;  // depthwise taps [9][C], dw_b [C], pw_b [Cout]
+  float* D = par + lay.par;
+  T* regions = reinterpret_cast<T*>(D + lay.d);
+  const int region_elems = lay.cells * lay.ldr;
+  const int ldr = lay.ldr;
+  const int ldd = lay.ldd;
+  const int rw = tw + 2;
+  const int tiles_x = (W + tw - 1) / tw;
+  const int tiles_img = tiles_x * ((H + th - 1) / th);
+  const int tiles = B * tiles_img;
 
-  const int n = blockIdx.y;
-  const int oy0 = (blockIdx.x / tiles_x) * kTile;
-  const int ox0 = (blockIdx.x % tiles_x) * kTile;
-  const T* xn = x + static_cast<int64_t>(n) * H * W * C;
-  T* on = out + static_cast<int64_t>(n) * H * W * Cout;
-
-  for (int i = threadIdx.x; i < kHalo * kHalo * C; i += blockDim.x) {
-    const int c = i % C;
-    const int r = i / C;
-    const int iy = oy0 - 1 + r / kHalo;
-    const int ix = ox0 - 1 + r % kHalo;
-    float v = 0.f;
-    if (iy >= 0 && iy < H && ix >= 0 && ix < W)
-      v = ynt::to_float(xn[(static_cast<int64_t>(iy) * W + ix) * C + c]);
-    xs[i] = v;
-  }
-  __syncthreads();
-
-  for (int i = threadIdx.x; i < kTile * kTile * C; i += blockDim.x) {
-    const int c = i % C;
-    const int p = i / C;
-    const int py = p / kTile;
-    const int px = p % kTile;
-    float acc = 0.f;
-#pragma unroll
-    for (int dy = 0; dy < 3; ++dy)
-#pragma unroll
-      for (int dx = 0; dx < 3; ++dx)
-        acc = fmaf(xs[((py + dy) * kHalo + px + dx) * C + c],
-                   dw_w[(dy * 3 + dx) * C + c], acc);
-    acc = ynt::activate(acc + dw_b[c], act_mid);
-    mid[i] = ynt::to_float(ynt::from_float<T>(acc));
-  }
-  __syncthreads();
-
-  ynt::pointwise<8>(
-      kTile * kTile, C, Cout, pw_w, pw_b,
-      [&](int p) { return mid + p * C; },
-      [&](int p, int o, float v) {
-        const int oy = oy0 + p / kTile;
-        const int ox = ox0 + p % kTile;
-        if (oy < H && ox < W)
-          on[(static_cast<int64_t>(oy) * W + ox) * Cout + o] =
-              ynt::from_float<T>(ynt::activate(v, act_out));
+  // the region of tile t (image, tile row, tile column) into buf: 16-byte
+  // cp.async copies (zeros outside the image), or plain loads where x's
+  // pixels are not 16-byte aligned
+  auto fill = [&](int t, T* buf) {
+    const int oy0 = t % tiles_img / tiles_x * th - 1;
+    const int ox0 = t % tiles_x * tw - 1;
+    const T* xn = x + static_cast<int64_t>(t / tiles_img) * H * W * C;
+    auto pixel = [&](int cy, int cx) -> int64_t {
+      const int iy = oy0 + cy;
+      const int ix = ox0 + cx;
+      return iy >= 0 && iy < H && ix >= 0 && ix < W
+                 ? (static_cast<int64_t>(iy) * W + ix) * C
+                 : -1;
+    };
+    if (vec_in) {
+      constexpr int kVec = 16 / sizeof(T);
+      for_each_cell(lay.cells, rw, C / kVec, [&](int cy, int cx, int v) {
+        const int64_t q = pixel(cy, cx);
+        ynt::mma_tf32::cp_async_zfill<16>(
+            buf + (cy * rw + cx) * ldr + v * kVec,
+            q >= 0 ? xn + q + v * kVec : xn, q >= 0);
       });
+    } else {
+      for_each_cell(lay.cells, rw, C, [&](int cy, int cx, int c) {
+        const int64_t q = pixel(cy, cx);
+        buf[(cy * rw + cx) * ldr + c] =
+            q >= 0 ? xn[q + c] : ynt::from_float<T>(0.f);
+      });
+    }
+    ynt::mma_tf32::cp_async_commit();
+  };
+
+  int t = blockIdx.x;
+  if (t < tiles) fill(t, regions);
+  // the weights, taps and biases, once per block, while the first region
+  // arrives: f32 weights by 16-byte cp.async where Cout allows, zeros in the
+  // pad rows and columns
+  const int kp = round_up(C, 8);
+  const int np = round_up(Cout, 8);
+  const int ldw = w_stride(Cout);
+  if (vec_w) {
+    for_each_cell(kp, 1, np / 4, [&](int k, int, int v) {
+      const bool in = k < C && v * 4 < Cout;
+      ynt::mma_tf32::cp_async_zfill<16>(
+          Ws + k * ldw + v * 4, in ? pw_w + k * Cout + v * 4 : pw_w, in);
+    });
+  } else {
+#pragma unroll 4
+    for (int i = threadIdx.x; i < kp * np; i += blockDim.x) {
+      const int k = i / np;
+      const int o = i % np;
+      Ws[k * ldw + o] =
+          k < C && o < Cout ? ynt::to_float(pw_w[k * Cout + o]) : 0.f;
+    }
+  }
+  ynt::mma_tf32::cp_async_commit();
+  for (int i = threadIdx.x; i < 10 * C + Cout; i += blockDim.x)
+    par[i] = i < 9 * C ? dw_w[i] : i < 10 * C ? dw_b[i - 9 * C]
+                                              : pw_b[i - 10 * C];
+
+  for (int it = 0; t < tiles; ++it, t += gridDim.x) {
+    const T* cur = regions + (it & 1) * region_elems;
+    if (t + gridDim.x < tiles)
+      fill(t + gridDim.x, regions + ((it + 1) & 1) * region_elems);
+    else
+      ynt::mma_tf32::cp_async_commit();  // an empty group keeps the count
+    ynt::mma_tf32::cp_async_wait<1>();   // all but the next tile's region
+    __syncthreads();  // ... and the last tile's stores are done with D
+
+    depthwise(cur, ldr, tw, th, C, par, par + 9 * C, act_mid, D, ldd);
+    __syncthreads();
+
+    // f32: 3xTF32; bf16: one pass, exact on bf16 operands
+    ynt::mma_tf32::gemm<true, sizeof(T) == 4 ? 3 : 1>(
+        lay.P, C, Cout, D, ldd, Ws, nullptr, true,
+        [&](int m, int n, float v) {
+          D[m * ldd + n] = ynt::activate(v + par[10 * C + n], act_out);
+        });
+    __syncthreads();
+
+    const int oy0 = t % tiles_img / tiles_x * th;
+    const int ox0 = t % tiles_x * tw;
+    T* on = out + static_cast<int64_t>(t / tiles_img) * H * W * Cout;
+    if (vec_out) {
+      constexpr int kVec = 16 / sizeof(T);
+      for_each_cell(lay.P, tw, Cout / kVec, [&](int py, int px, int v) {
+        const int oy = oy0 + py;
+        const int ox = ox0 + px;
+        if (oy < H && ox < W)
+          store16(on + (static_cast<int64_t>(oy) * W + ox) * Cout + v * kVec,
+                  D + (py * tw + px) * ldd + v * kVec);
+      });
+    } else {
+      for (int i = threadIdx.x; i < lay.P * Cout; i += blockDim.x) {
+        const int p = i / Cout;
+        const int c = i % Cout;
+        const int oy = oy0 + p / tw;
+        const int ox = ox0 + p % tw;
+        if (oy < H && ox < W)
+          on[(static_cast<int64_t>(oy) * W + ox) * Cout + c] =
+              ynt::from_float<T>(D[p * ldd + c]);
+      }
+    }
+    // D is next written after the barrier that follows the next wait
+  }
 }
 
 template <typename T>
 int launch(const T* x, const float* dw_w, const float* dw_b, const T* pw_w,
            const float* pw_b, T* out, int B, int H, int W, int C, int Cout,
-           int act_mid, int act_out, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (kHalo * kHalo + kTile * kTile) * C;
+           int act_mid, int act_out, int tw, int th, cudaStream_t stream) {
+  // mma_tf32::gemm's warps cover N = Cout up to kWarps * kNTW * 8 = 512
+  if (tw < 1 || th < 1 || C < 1 ||
+      round_up(Cout, 8) > ynt::mma_tf32::kWarps * ynt::mma_tf32::kNTW * 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = Layout(tw, th, C, Cout, sizeof(T)).bytes();
+  if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
       fused_dw_pw_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int tiles_x = (W + kTile - 1) / kTile;
-  const int tiles_y = (H + kTile - 1) / kTile;
-  const dim3 grid(tiles_x * tiles_y, B);
-  fused_dw_pw_kernel<T><<<grid, ynt::kThreads, smem, stream>>>(
-      x, dw_w, dw_b, pw_w, pw_b, out, H, W, C, Cout, act_mid, act_out,
-      tiles_x);
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                 device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t tiles = static_cast<int64_t>(B) * ((H + th - 1) / th) *
+                        ((W + tw - 1) / tw);
+  if (tiles > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  constexpr int kVec = 16 / sizeof(T);
+  const bool vec_in =
+      C % kVec == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool vec_w = sizeof(T) == 4 && Cout % 4 == 0 &&
+                     reinterpret_cast<uintptr_t>(pw_w) % 16 == 0;
+  const bool vec_out =
+      Cout % kVec == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  const int grid = static_cast<int>(tiles < sms ? tiles : sms);
+  fused_dw_pw_kernel<T><<<grid, kThreads, smem, stream>>>(
+      x, dw_w, dw_b, pw_w, pw_b, out, B, H, W, C, Cout, act_mid, act_out, tw,
+      th, vec_in, vec_w, vec_out);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Work of a block per region cell (input load, depthwise) and per tile row
+// (the depthwise's setup of a row), in gemm rounds; fitted to chip_smoke.py
+// --sweep-dw-pw-tiles on an H100 (PERF.md).
+constexpr double kCellRounds = 0.3 / 128;
+constexpr double kRowRounds = 0.02;
+
+// Modelled time of one launch with tw x th tiles: the gemm rounds of a tile
+// (a round with idle warps costs a full one), kCellRounds per region cell
+// and kRowRounds per tile row, times the tiles of the busiest block of the
+// persistent grid, one block to an SM.
+double dw_pw_tile_cost(int tw, int th, int B, int H, int W, int Cout) {
+  const int per_round = ynt::mma_tf32::kWarps /
+                        ynt::mma_tf32::warps_n(Cout) * ynt::mma_tf32::kWM;
+  const int rounds = ((tw * th + 15) / 16 + per_round - 1) / per_round;
+  const int64_t tiles = static_cast<int64_t>(B) * ((H + th - 1) / th) *
+                        ((W + tw - 1) / tw);
+  const int64_t waves = (tiles + kSMs - 1) / kSMs;
+  return waves * (rounds + kCellRounds * (tw + 2) * (th + 2) +
+                  kRowRounds * th);
 }
 
 }  // namespace
 
+// Shared memory of one thread block, in bytes; elem is x's element size.
+extern "C" size_t fused_dw_pw_smem_bytes(int tw, int th, int C, int Cout,
+                                         int elem) {
+  return Layout(tw, th, C, Cout, elem).bytes();
+}
+
+// Output tile (tw columns x th rows) of one launch: of the tiles up to
+// 64 x 64, and no larger than the image, whose shared memory fits, the one
+// of least dw_pw_tile_cost (the first found on a tie, in order of tw, then
+// th). Returns 0 and leaves tw, th alone if none fits.
+extern "C" int fused_dw_pw_tile(int B, int H, int W, int C, int Cout,
+                                int elem, int* tw, int* th) {
+  double best = 0.0;
+  int found = 0;
+  for (int w = 1; w <= 64 && w <= W; ++w) {
+    for (int h = 1; h <= 64 && h <= H; ++h) {
+      if (Layout(w, h, C, Cout, elem).bytes() > kSmemMax) continue;
+      const double cost = dw_pw_tile_cost(w, h, B, H, W, Cout);
+      if (!found || cost < best) {
+        found = 1;
+        best = cost;
+        *tw = w;
+        *th = h;
+      }
+    }
+  }
+  return found;
+}
+
+// x [B,H,W,C] -> out [B,H,W,Cout], NHWC in x's dtype; dw_w [3,3,C],
+// dw_b [C], pw_b [Cout] f32; pw_w [C,Cout] in x's dtype. One persistent
+// block per SM walks the tw x th output tiles.
 extern "C" int fused_dw_pw_f32(const void* x, const void* dw_w,
                                const void* dw_b, const void* pw_w,
                                const void* pw_b, void* out, int B, int H,
                                int W, int C, int Cout, int act_mid,
-                               int act_out, void* stream) {
+                               int act_out, int tw, int th, void* stream) {
   return launch<float>(
       static_cast<const float*>(x), static_cast<const float*>(dw_w),
       static_cast<const float*>(dw_b), static_cast<const float*>(pw_w),
       static_cast<const float*>(pw_b), static_cast<float*>(out), B, H, W, C,
-      Cout, act_mid, act_out, static_cast<cudaStream_t>(stream));
+      Cout, act_mid, act_out, tw, th, static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int fused_dw_pw_bf16(const void* x, const void* dw_w,
                                 const void* dw_b, const void* pw_w,
                                 const void* pw_b, void* out, int B, int H,
                                 int W, int C, int Cout, int act_mid,
-                                int act_out, void* stream) {
+                                int act_out, int tw, int th, void* stream) {
   return launch<__nv_bfloat16>(
       static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(dw_w),
       static_cast<const float*>(dw_b),
       static_cast<const __nv_bfloat16*>(pw_w),
       static_cast<const float*>(pw_b), static_cast<__nv_bfloat16*>(out), B,
-      H, W, C, Cout, act_mid, act_out, static_cast<cudaStream_t>(stream));
+      H, W, C, Cout, act_mid, act_out, tw, th,
+      static_cast<cudaStream_t>(stream));
 }

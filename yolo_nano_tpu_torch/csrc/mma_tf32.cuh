@@ -1,19 +1,26 @@
 // f32-accurate tile products on the tensor cores (3xTF32 mma.sync), for
-// Hopper (sm_90a); used by fused_stage.cu for every pointwise (1x1) product.
+// Hopper (sm_90a); used by fused_stage.cu and fused_dw_pw.cu for every
+// pointwise (1x1) product.
 //
 // One product: out[m][n] = sum_k A[m][k] * W[k][n], m < M, n < N, with
-//   - A: activations in shared memory, row stride act_stride(K), columns
-//     K..round8(K)-1 zero (rows past M are read but their results dropped);
-//   - W: weights in device memory, [round8(K)][round8(N)], zero-padded,
-//     16-byte aligned; streamed through shared memory in chunks of kKC rows,
-//     double-buffered with cp.async;
+//   - A: activations in shared memory, row stride lda = 4 mod 8 (as
+//     act_stride gives), columns K..round8(K)-1 zero (rows past M are read
+//     but their results dropped);
+//   - W: by default weights in device memory, [round8(K)][round8(N)],
+//     zero-padded, 16-byte aligned; streamed through shared memory in chunks
+//     of kKC rows, double-buffered with cp.async. With RESIDENT, W is
+//     already in shared memory, [round8(K)][w_stride(N)], zero-padded: the
+//     product then waits on no cp.async group, so copies the caller started
+//     stay in flight through it;
 //   - an epilogue functor epi(m, n, v) called once for each m < M, n < N
 //     (bias, activation and the store are the caller's).
 //
 // Precision: each operand x is split into hi = tf32(x) and lo = tf32(x - hi)
 // (rounded as cvt.rna), and each k-step of 8 is summed as
 // a_lo*b_hi + a_hi*b_lo + a_hi*b_hi. The dropped a_lo*b_lo term is below
-// 2^-22 of |a*b|; a single TF32 pass keeps about 3 decimal digits. The three
+// 2^-22 of |a*b|; a single TF32 pass keeps about 3 decimal digits. Operands
+// already exact in TF32 (bf16 values: 7 mantissa bits) take PASSES = 1, the
+// a_hi*b_hi pass alone, which is then exact. The three
 // passes of a k-step accumulate on the tensor core into a fresh zero, and
 // that sum is added to the running f32 sum on the CUDA cores: the tensor
 // core rounds its sum toward zero at the scale of its largest addend, so
@@ -139,15 +146,18 @@ __device__ __forceinline__ void prefetch(int K, int N, const float* W,
 }
 
 // The product described at the top of this file. Every thread of the block
-// calls it; wbuf holds wbuf_floats(N) floats. Before its first read of A,
-// every cp.async group the block committed earlier has completed and the
-// block has synchronised; it synchronises again before each epilogue. A
-// caller that reads what epi wrote to shared memory synchronises first.
-template <typename Epi>
+// calls it; wbuf holds wbuf_floats(N) floats (unused with RESIDENT). By
+// default, before its first read of A, every cp.async group the block
+// committed earlier has completed and the block has synchronised; with
+// RESIDENT the caller has synchronised after writing A and W. It
+// synchronises before each epilogue. A caller that reads what epi wrote to
+// shared memory synchronises first.
+template <bool RESIDENT = false, int PASSES = 3, typename Epi>
 __device__ __forceinline__ void gemm(int M, int K, int N,
                                      const float* A, int lda,
                                      const float* __restrict__ W,
                                      float* wbuf, bool prefetched, Epi epi) {
+  static_assert(PASSES == 1 || PASSES == 3, "1 or 3 TF32 passes");
   const int kp = round_up(K, 8);
   const int np = round_up(N, 8);
   const int ldw = w_stride(N);
@@ -161,7 +171,8 @@ __device__ __forceinline__ void gemm(int M, int K, int N,
   const int wm = warp / wn_count;
   const int mt_all = (M + 15) / 16;
   const int mt_round = (kWarps / wn_count) * kWM;
-  const int chunks = (kp + kKC - 1) / kKC;
+  const int kc = RESIDENT ? kp : kKC;  // weight rows of one chunk
+  const int chunks = (kp + kc - 1) / kc;
   const int nt0 = (warp % wn_count) * ntw;
   const int n_tiles = min(ntw, nt_all - nt0);  // may be <= 0
 
@@ -175,20 +186,22 @@ __device__ __forceinline__ void gemm(int M, int K, int N,
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
-    if (mt_first > 0 || !prefetched)
+    if (!RESIDENT && (mt_first > 0 || !prefetched))
       load_chunk(wbuf, W, np, ldw, 0, min(kKC, kp));
     for (int c = 0; c < chunks; ++c) {
-      const int k0 = c * kKC;
-      if (c + 1 < chunks) {
-        load_chunk(wbuf + ((c + 1) & 1) * kKC * ldw, W, np, ldw, k0 + kKC,
-                   min(kKC, kp - k0 - kKC));
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
+      const int k0 = c * kc;
+      if (!RESIDENT) {
+        if (c + 1 < chunks) {
+          load_chunk(wbuf + ((c + 1) & 1) * kKC * ldw, W, np, ldw, k0 + kKC,
+                     min(kKC, kp - k0 - kKC));
+          cp_async_wait<1>();
+        } else {
+          cp_async_wait<0>();
+        }
+        __syncthreads();
       }
-      __syncthreads();
-      const float* wb = wbuf + (c & 1) * kKC * ldw;
-      const int ksteps = min(kKC, kp - k0) / 8;
+      const float* wb = RESIDENT ? W : wbuf + (c & 1) * kKC * ldw;
+      const int ksteps = min(kc, kp - k0) / 8;
       if (n_tiles > 0) {
         // the operands of k-step ks + 1 load while ks's products run
         float a_raw[kWM][4], b_raw[kNTW][2];
@@ -214,21 +227,30 @@ __device__ __forceinline__ void gemm(int M, int K, int N,
           }
         };
         load(0);
+        // streamed: the chunk's k-steps unrolled; resident: a loop over K
 #pragma unroll
-        for (int ks = 0; ks < kKC / 8; ++ks) {
+        for (int ks = 0; ks < (RESIDENT ? ksteps : kKC / 8); ++ks) {
           if (ks < ksteps) {
             uint32_t a_hi[kWM][4], a_lo[kWM][4];
             uint32_t b_hi[kNTW][2], b_lo[kNTW][2];
 #pragma unroll
             for (int i = 0; i < kWM; ++i)
 #pragma unroll
-              for (int e = 0; e < 4; ++e)
-                split(a_raw[i][e], a_hi[i][e], a_lo[i][e]);
+              for (int e = 0; e < 4; ++e) {
+                if (PASSES == 3)
+                  split(a_raw[i][e], a_hi[i][e], a_lo[i][e]);
+                else
+                  a_hi[i][e] = to_tf32(a_raw[i][e]);
+              }
 #pragma unroll
             for (int j = 0; j < kNTW; ++j)
 #pragma unroll
-              for (int e = 0; e < 2; ++e)
-                split(b_raw[j][e], b_hi[j][e], b_lo[j][e]);
+              for (int e = 0; e < 2; ++e) {
+                if (PASSES == 3)
+                  split(b_raw[j][e], b_hi[j][e], b_lo[j][e]);
+                else
+                  b_hi[j][e] = to_tf32(b_raw[j][e]);
+              }
             if (ks + 1 < ksteps) load(ks + 1);
             // small terms first, into a fresh zero; then one f32 add
 #pragma unroll
@@ -237,8 +259,10 @@ __device__ __forceinline__ void gemm(int M, int K, int N,
               for (int j = 0; j < kNTW; ++j)
                 if (j < n_tiles && mt_warp + i < mt_all) {
                   float d[4] = {0.f, 0.f, 0.f, 0.f};
-                  mma(d, a_lo[i], b_hi[j][0], b_hi[j][1]);
-                  mma(d, a_hi[i], b_lo[j][0], b_lo[j][1]);
+                  if (PASSES == 3) {
+                    mma(d, a_lo[i], b_hi[j][0], b_hi[j][1]);
+                    mma(d, a_hi[i], b_lo[j][0], b_lo[j][1]);
+                  }
                   mma(d, a_hi[i], b_hi[j][0], b_hi[j][1]);
 #pragma unroll
                   for (int e = 0; e < 4; ++e) acc[i][j][e] += d[e];
@@ -246,7 +270,8 @@ __device__ __forceinline__ void gemm(int M, int K, int N,
           }
         }
       }
-      __syncthreads();  // the buffer is refilled, A's rows may be overwritten
+      // the buffer is refilled, A's rows may be overwritten
+      if (!RESIDENT || c + 1 == chunks) __syncthreads();
     }
 
 #pragma unroll

@@ -7,15 +7,26 @@ with the depthwise taps summed in f32, the pointwise product taken in x's
 dtype with f32 accumulation, and the output in x's dtype. It runs the two
 dw→pw pairs of every detection head on a folded model.
 
+The kernel runs the pointwise product on the tensor cores (3×TF32
+`mma.sync` in f32, one exact TF32 pass in bf16, `csrc/mma_tf32.cuh`) with
+the weights resident in shared memory, and a persistent block per SM
+prefetches the next tile's input region while the current tile computes.
+It sums in another order than cuDNN: within 1e-4·max|ref| + 1e-5 of the
+plain version in f32. The output tile is the kernel's own pick
+(`tile_shape`).
+
 Layouts: x is [B, C, H, W] in channels_last memory (NHWC bytes); the weights
 keep the JAX kernel's layouts: dw_w [3, 3, C] f32, dw_b [C] f32,
-pw_w [C, Cout] in x's dtype, pw_b [Cout] f32.
+pw_w [C, Cout] in x's dtype, pw_b [Cout] f32. The kernel zero-pads the
+pointwise weights to multiples of 8 in shared memory, so any C and Cout up
+to 512 whose weights fit there are taken as they are.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -25,6 +36,7 @@ from yolo_nano_tpu_torch.ops.nn import activate
 
 ACT_CODES = {None: 0, "relu": 1, "leaky": 2}
 _SYMBOLS = {torch.float32: "fused_dw_pw_f32", torch.bfloat16: "fused_dw_pw_bf16"}
+COUT_MAX = 512  # the gemm's 16 warps cover at most 64 n8 tiles
 
 
 def fused_dw_pw_plain(x, dw_w, dw_b, pw_w, pw_b, *,
@@ -61,14 +73,62 @@ def _check(x, dw_w, dw_b, pw_w, pw_b):
             raise ValueError(f"{name} is on {t.device}, x on {x.device}")
 
 
+@functools.lru_cache(maxsize=None)
 def _lib():
+    """The built kernel: fused_dw_pw_{f32,bf16} launch it;
+    fused_dw_pw_tile and fused_dw_pw_smem_bytes are its tile rule and
+    shared-memory layout, computed on the host."""
     lib = load("fused_dw_pw")
     for sym in _SYMBOLS.values():
         fn = getattr(lib, sym)
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [
+        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
             ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.fused_dw_pw_tile.argtypes = [ctypes.c_int] * 6 + [
+        ctypes.POINTER(ctypes.c_int)] * 2
+    lib.fused_dw_pw_tile.restype = ctypes.c_int
+    lib.fused_dw_pw_smem_bytes.argtypes = [ctypes.c_int] * 5
+    lib.fused_dw_pw_smem_bytes.restype = ctypes.c_size_t
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def tile_shape(batch: int, h: int, w: int, c: int, cout: int,
+               elem_bytes: int) -> Tuple[int, int]:
+    """(columns, rows) of the kernel's output tile, as its fused_dw_pw_tile
+    picks it (csrc/fused_dw_pw.cu: a cost model of gemm rounds, region
+    cells and tiles per SM, among the tiles whose shared memory fits).
+    chip_smoke.py --sweep-dw-pw-tiles times tiles against it."""
+    tw, th = ctypes.c_int(), ctypes.c_int()
+    if not _lib().fused_dw_pw_tile(batch, h, w, c, cout, elem_bytes,
+                                   ctypes.byref(tw), ctypes.byref(th)):
+        raise ValueError(f"fused_dw_pw: the weights of C {c}, Cout {cout} "
+                         f"and the smallest tile do not fit in shared memory")
+    return tw.value, th.value
+
+
+def _launch(x, dw_w, dw_b, pw_w, pw_b, act_mid, act_out, tile=None):
+    """One launch on CUDA tensors, at `tile` = (columns, rows) or the
+    kernel's own pick."""
+    b, c, h, w = x.shape
+    cout = pw_w.shape[1]
+    if cout > COUT_MAX:
+        raise ValueError(f"the fused_dw_pw kernel takes Cout up to "
+                         f"{COUT_MAX}, got {cout}")
+    out = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device,
+                      memory_format=torch.channels_last)
+    if out.numel() == 0:
+        return out
+    if tile is None:
+        tile = tile_shape(b, h, w, c, cout, x.element_size())
+    fn = getattr(_lib(), _SYMBOLS[x.dtype])
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    err = fn(x.data_ptr(), dw_w.data_ptr(), dw_b.data_ptr(), pw_w.data_ptr(),
+             pw_b.data_ptr(), out.data_ptr(), b, h, w, c, cout,
+             ACT_CODES[act_mid], ACT_CODES[act_out], *tile, stream)
+    fused_dw_pw.launches += 1
+    check(err, "fused_dw_pw")
+    return out
 
 
 def fused_dw_pw(x, dw_w, dw_b, pw_w, pw_b, *,
@@ -89,20 +149,7 @@ def fused_dw_pw(x, dw_w, dw_b, pw_w, pw_b, *,
     for t in (dw_w, dw_b, pw_w, pw_b):
         if not t.is_contiguous():
             raise ValueError("weights must be contiguous")
-    b, c, h, w = x.shape
-    cout = pw_w.shape[1]
-    out = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device,
-                      memory_format=torch.channels_last)
-    if out.numel() == 0:
-        return out
-    fn = getattr(_lib(), _SYMBOLS[x.dtype])
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = fn(x.data_ptr(), dw_w.data_ptr(), dw_b.data_ptr(), pw_w.data_ptr(),
-             pw_b.data_ptr(), out.data_ptr(), b, h, w, c, cout,
-             ACT_CODES[act_mid], ACT_CODES[act_out], stream)
-    fused_dw_pw.launches += 1
-    check(err, "fused_dw_pw")
-    return out
+    return _launch(x, dw_w, dw_b, pw_w, pw_b, act_mid, act_out)
 
 
 fused_dw_pw.launches = 0
