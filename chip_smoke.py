@@ -19,7 +19,18 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
      kernel launch counts, the detections slot for slot against predict
      with the plain versions on the same card, the NMS candidate load;
      prints img/s and per-stage ms;
-  4. a JSON line of kernel numbers, the card line, and the result line.
+  4. training at the artifact's configuration (1.0x COCO, 416 px), batch
+     16, from init_yolo_nano: 30 steps must bring the loss below 0.8x the
+     first; build_targets on colliding ground truths against the CPU; the
+     NaN guard (every state tensor bit-identical) under
+     set_sync_debug_mode("error"); multi-scale steps at 320 and 608 px; the
+     trained model folded and run through predict with both kernels against
+     the plain versions; train step ms, img/s, peak memory and the ms of
+     build_targets, forward+loss, backward and update+EMA; last, one step
+     from the initial state at batch 4 on the card against the same step on
+     the CPU in f32 and in f64: per state field the card's error against
+     f64 within 4x the CPU f32's;
+  5. a JSON line of kernel numbers, the card line, and the result line.
 
 A bound is the least time the card could take for a kernel's work: the
 larger of its bytes (each input read once, each output written once) over
@@ -43,6 +54,7 @@ import json
 import os
 import subprocess
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -55,6 +67,22 @@ HBM_BYTES_PER_S = 3.35e12
 SMEM_MAX = 227 * 1024  # shared memory one block may use on sm_90
 # operations per second at the working precision: f32 as 3xTF32
 EFFECTIVE_FLOPS = {torch.float32: 495e12 / 3, torch.bfloat16: 989e12}
+# training phase: batch and box padding of cli/train.py's defaults
+TRAIN_BATCH = 16
+MAX_BOXES = 64
+TRAIN_STEPS = 30
+TRAIN_LR = 1e-3
+CPU_BATCH = 4
+# the CPU tests' tolerances (tests/test_torch_train.py)
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_LEAF_RTOL, TRAIN_LEAF_ATOL, TRAIN_FIELD_ATOL = 1e-3, 1e-5, 5e-7
+# detections of the trained model whose scores agree this closely may swap
+# slots between the kernel and the plain path: the kernels' head outputs
+# differ from the plain versions' by up to 2e-4 on logits of 10 to 100,
+# which moves a score by about 2e-4 of itself; two detections of one class
+# 1e-5 apart took each other's slot, as did two of two classes 1e-6 apart
+TIE_RTOL = 1e-3
+LOSS_NAMES = ("loss/total", "loss/obj", "loss/cls", "loss/bbox", "loss/iou")
 OPERATING_POINTS = {
     "serving": dict(conf_thresh=0.1, nms_thresh=0.45, pre_topk=128),
     "eval_strict": dict(conf_thresh=0.001, pre_topk=512, max_det=128),
@@ -83,20 +111,28 @@ def _smooth(img: np.ndarray) -> np.ndarray:
     return out
 
 
-def render_scenes(n: int, size: int, seed: int = 0) -> np.ndarray:
+def render_scenes(n: int, size: int, seed: int = 0,
+                  max_boxes: Optional[int] = None):
     """n scenes of 1-4 filled shapes on smoothed noise → [n,S,S,3] f32 RGB,
     normalized as the JAX package's val_transform: (img/255 − mean)/std in
-    BGR, then flipped to RGB."""
+    BGR, then flipped to RGB. With max_boxes, also each shape's box
+    [n,max_boxes,4] (normalized corners) and class [n,max_boxes] (−1 pads),
+    in the order drawn."""
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[:size, :size]
     out = np.empty((n, size, size, 3), np.float32)
+    boxes = np.zeros((n, max_boxes or 0, 4), np.float32)
+    labels = np.full((n, max_boxes or 0), -1, np.int32)
     for i in range(n):
         img = _smooth(rng.integers(60, 190, (size, size, 3)))
-        for _ in range(int(rng.integers(1, 5))):
+        for j in range(int(rng.integers(1, 5))):
             s = int(rng.integers(50, 150))
             x1 = int(rng.integers(2, size - s - 2))
             y1 = int(rng.integers(2, size - s - 2))
             cls = int(rng.integers(3))
+            if max_boxes:
+                boxes[i, j] = np.array([x1, y1, x1 + s + 1, y1 + s + 1]) / size
+                labels[i, j] = cls
             cx, cy = x1 + s // 2, y1 + s // 2
             if cls == 0:
                 mask = (xx - cx) ** 2 + (yy - cy) ** 2 <= (s // 2) ** 2
@@ -109,7 +145,7 @@ def render_scenes(n: int, size: int, seed: int = 0) -> np.ndarray:
             img[mask] = SHAPE_COLOURS[cls]
         img = np.rint(img).astype(np.uint8).astype(np.float32) / 255.0
         out[i] = ((img - IMAGE_MEAN) / IMAGE_STD)[..., ::-1]
-    return out
+    return out if max_boxes is None else (out, boxes, labels)
 
 
 # ---------------------------------------------------------------------------
@@ -483,14 +519,19 @@ def read_counts():
                 fused_stage=fused_stage.launches)
 
 
-def check_detections(point, got, plain, tol=1e-4):
+def check_detections(point, got, plain, tol=1e-4, tie_rtol=0.0) -> int:
     """The kernel path's detections against the plain-version predict, slot
-    for slot: valid and classes equal, scores and boxes within tol. A
-    failure names the first image and slot that differ, with both scores."""
+    for slot: valid and classes equal, scores and boxes within tol. With
+    tie_rtol, a valid slot may hold another detection where the two paths'
+    scores there agree within tie_rtol of the score: a near tie, which any
+    f32 summation order can flip. A failure names the first image and slot
+    that differ, with both scores. → the number of such near-tie slots."""
     b, s, c, v = got
     pb, ps, pc, pv = plain
     bad = ((v != pv) | (c != pc) | (np.abs(s - ps) > tol)
            | (np.abs(b - pb).max(-1) > tol))
+    ties = bad & v & pv & (np.abs(s - ps) <= tie_rtol * np.abs(ps))
+    bad &= ~ties
     if bad.any():
         img, k = np.argwhere(bad)[0]
         raise AssertionError(
@@ -498,6 +539,7 @@ def check_detections(point, got, plain, tol=1e-4):
             f"predict; first image {img} slot {k}: class {c[img, k]} score "
             f"{s[img, k]:.9g} valid {v[img, k]}, plain class {pc[img, k]} "
             f"score {ps[img, k]:.9g} valid {pv[img, k]}")
+    return int(ties.sum())
 
 
 def phase_main_path(images_np):
@@ -574,6 +616,313 @@ def phase_main_path(images_np):
     return counts, stats
 
 
+def fields_close(what, got, cpu, ref):
+    """The card's train state `got` against the CPU's f32 step `cpu` and
+    its f64 step `ref`. Per field, the card's error against f64 (the root
+    of its summed squares over the field's tensors) must be within 4x the
+    CPU f32 step's, plus 1e-7 of the field's norm; count and step equal.
+    The field and not each tensor: where a BN'd conv's weights are small
+    its gradient is large and cancels, and either device's f32 rounding
+    moves single tensors by 1e-4 to 1e-3 of themselves, now one device
+    further, now the other. → ({field: (card error, CPU f32 error) over
+    the field's norm}, the worst tensor's error against the CPU f32 step
+    over the CPU tests' leaf tolerance, tests/test_torch_train.py)."""
+    g, c, r = got.flat(), cpu.flat(), ref.flat()
+    if not g.keys() == c.keys() == r.keys():
+        raise AssertionError(f"{what}: the states hold other tensors")
+    errors, worst_leaf = {}, 0.0
+    for field in ("params", "stats", "trace", "ema_params", "ema_stats"):
+        keys = [k for k in r if k.startswith(field + "/")]
+        top = max(r[k].abs().max().item() for k in keys)
+        atol = max(TRAIN_LEAF_ATOL, TRAIN_FIELD_ATOL * top)
+        sq = np.zeros(3)
+        for k in keys:
+            exact = r[k]
+            card = g[k].cpu()
+            sq += [(card.double() - exact).square().sum().item(),
+                   (c[k].double() - exact).square().sum().item(),
+                   exact.square().sum().item()]
+            tol = TRAIN_LEAF_RTOL * exact.abs().max().item() + atol
+            worst_leaf = max(worst_leaf,
+                             (card - c[k]).abs().max().item() / tol)
+        card_err, cpu_err, norm = np.sqrt(sq)
+        errors[field] = (card_err / norm, cpu_err / norm)
+        if not card_err <= 4 * cpu_err + 1e-7 * norm:
+            raise AssertionError(
+                f"{what}: {field} error against f64 {card_err / norm:.3g} of "
+                f"its norm, over 4x the CPU f32's {cpu_err / norm:.3g}")
+    for k in ("count", "step"):
+        if not int(g[k]) == int(c[k]) == int(r[k]):
+            raise AssertionError(f"{what}: {k} {int(g[k])} != {int(c[k])}")
+    return errors, worst_leaf
+
+
+def collision_gts(size, n=4, groups=6):
+    """Ground truths made to collide: in each image `groups` boxes of one
+    centre at sizes growing by 1.15x (each above the ignore threshold on
+    its neighbours' anchors), each followed by a copy with another class
+    (a positive/positive collision)."""
+    rng = np.random.default_rng(3)
+    boxes = np.zeros((n, MAX_BOXES, 4), np.float32)
+    labels = np.full((n, MAX_BOXES), -1, np.int32)
+    for i in range(n):
+        j = 0
+        for _ in range(groups):
+            c = rng.uniform(0.2, 0.8, 2)
+            base = rng.uniform(12, 60)
+            for k in range(4):
+                half = base * 1.15 ** k / size / 2
+                box = np.clip(np.concatenate([c - half, c + half]), 0, 1)
+                cls = int(rng.integers(80))
+                boxes[i, j:j + 2] = box
+                labels[i, j:j + 2] = cls, (cls + 1) % 80
+                j += 2
+    return boxes, labels
+
+
+def check_targets_on_card(step, cpu_step):
+    """build_targets on CUDA against the CPU on colliding ground truths:
+    equal (tw, th within 1e-6: log on two devices), and the row of every
+    gt's best anchor positive, though other gts ignore it."""
+    boxes, labels = collision_gts(SIZE)
+    tb, tl = torch.from_numpy(boxes), torch.from_numpy(labels)
+    got = step.targets(tb.cuda(), tl.cuda()).cpu()
+    want = cpu_step.targets(tb, tl)
+    exact = [0, 1, 2, 3, 6, 7, 8, 9, 10]
+    if not torch.equal(got[..., exact], want[..., exact]) or (
+            got[..., 4:6] - want[..., 4:6]).abs().max().item() > 1e-6:
+        raise AssertionError("build_targets on CUDA differs from the CPU")
+    overruled = 0
+    for i in range(boxes.shape[0]):
+        alone = [cpu_step.targets(tb[i:i + 1, j:j + 1], tl[i:i + 1, j:j + 1])[0]
+                 for j in range(MAX_BOXES) if labels[i, j] >= 0]
+        for j, t in enumerate(alone):
+            pos = t[:, 0] == 1
+            if not (got[i][pos, 0] == 1).all():
+                raise AssertionError(f"image {i} gt {j}: its positive row "
+                                     "lost to another write")
+            overruled += sum(int((o[pos, 0] == -1).sum())
+                             for k, o in enumerate(alone) if k != j)
+    if not overruled:
+        raise AssertionError("the colliding inputs hold no ignore/positive "
+                             "collision")
+    print(f"  build_targets on CUDA equals the CPU on {boxes.shape[0]} images "
+          f"of colliding gts; {overruled} ignore writes landed on positive "
+          f"rows and lost to them")
+
+
+def backward_ms(step, state, images, targets, iters=10) -> float:
+    """Mean ms of the backward pass alone: CUDA events around each
+    autograd.grad, its forward run before the start event."""
+    times = []
+    for i in range(iters + 2):
+        total, _, params, _ = step.loss(state, images, targets)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.autograd.grad(total, list(params.values()))
+        end.record()
+        if i >= 2:
+            times.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in times) / iters
+
+
+def device_busy_ms(fn, iters: int = 3):
+    """Summed kernel time per call, from torch.profiler's CUDA events over
+    `iters` calls; None (with the reason printed) if the profiler records
+    no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA)
+    except (RuntimeError, AttributeError) as e:
+        print(f"  device busy time: not measured ({e})")
+        return None
+    if not us:
+        print("  device busy time: not measured (the profiler saw no kernel)")
+        return None
+    return us / 1e3 / iters
+
+
+def phase_training():
+    """The training path on the card at the artifact's configuration (1.0x
+    COCO, 416 px), batch 16, f32 with TF32 off, from init_yolo_nano with a
+    seeded generator, on rendered scenes with their boxes."""
+    from yolo_nano_tpu_torch.config import config_from_json
+    from yolo_nano_tpu_torch.convert import load_npz, model_from_state
+    from yolo_nano_tpu_torch.models.yolo_nano import init_yolo_nano, predict
+    from yolo_nano_tpu_torch.train import (create_train_state,
+                                           make_optimizer, make_train_step)
+    from yolo_nano_tpu_torch.utils.fuse_bn import fold_bn
+
+    cfg = config_from_json(load_npz(NPZ)[1])
+    print(f"[4] training: {cfg.backbone} backbone, {cfg.num_classes} classes, "
+          f"{SIZE} px, batch {TRAIN_BATCH}, {TRAIN_STEPS} steps at constant "
+          f"lr {TRAIN_LR}, EMA on")
+    images, boxes, labels = (torch.from_numpy(a).cuda() for a in render_scenes(
+        TRAIN_BATCH, SIZE, seed=1, max_boxes=MAX_BOXES))
+    # cuDNN's deterministic algorithms until the fold→predict check: the
+    # trained model, and with it the near ties among its detections, is
+    # then the same in every run (the timing below runs without them)
+    torch.backends.cudnn.deterministic = True
+    tx = make_optimizer(lambda count: TRAIN_LR)
+    model = init_yolo_nano(torch.Generator().manual_seed(0), cfg)
+    state = start = create_train_state(model, tx, use_ema=True)
+    step = make_train_step(cfg, tx, SIZE)
+    losses = []
+    for _ in range(TRAIN_STEPS):
+        state, metrics = step(state, images, boxes, labels)
+        losses.append(torch.stack([metrics[k] for k in LOSS_NAMES]))
+    losses = torch.stack(losses).cpu().numpy()       # [steps, 5]
+    first, last = losses[0, 0], losses[-1, 0]
+    checksum = sum(v.double().sum() for v in state.params.values()).item()
+    print(f"  overfit: total loss {first:.4f} → {last:.9g}, "
+          f"{last / first:.3f} of the first (params sum {checksum!r}); last "
+          + ", ".join(f"{k} {v:.4f}" for k, v in zip(LOSS_NAMES[1:],
+                                                      losses[-1, 1:])))
+    if not np.isfinite(losses).all():
+        raise AssertionError("a training loss is not finite")
+    if int(state.step) != TRAIN_STEPS or int(state.count) != TRAIN_STEPS:
+        raise AssertionError(f"step {int(state.step)}, count "
+                             f"{int(state.count)} after {TRAIN_STEPS} steps")
+    if not last < 0.8 * first:
+        raise AssertionError(f"loss fell only to {last / first:.3f} of the "
+                             "first, not below 0.8")
+
+    cpu_step = make_train_step(cfg, tx, SIZE, device="cpu")
+    check_targets_on_card(step, cpu_step)
+
+    # NaN guard: a NaN image leaves every state tensor bit-identical, and
+    # neither step makes the host wait on the card
+    bad = images.clone()
+    bad[0, 0, 0, 0] = float("nan")
+    before = {k: v.clone() for k, v in state.flat().items()}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        ok_state, _ = step(state, images, boxes, labels)
+        nan_state, nan_metrics = step(state, bad, boxes, labels)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if int(nan_metrics["skipped_nonfinite"]) != 1 or int(ok_state.step) != \
+            TRAIN_STEPS + 1:
+        raise AssertionError("the NaN batch was not skipped")
+    after = nan_state.flat()
+    changed = [k for k, v in before.items() if not torch.equal(after[k], v)]
+    if changed:
+        raise AssertionError(f"the NaN step changed {changed[:5]}")
+    print(f"  NaN guard: all {len(before)} state tensors bit-identical after "
+          "a NaN batch; the good and the NaN step ran under "
+          "set_sync_debug_mode('error')")
+
+    # multi-scale: steps built for other sizes, fed the 416 px batch
+    for size in (320, 608):
+        s, m = make_train_step(cfg, tx, size)(state, images, boxes, labels)
+        if not np.isfinite(float(m["loss/total"])) or int(s.step) != \
+                TRAIN_STEPS + 1:
+            raise AssertionError(f"multi-scale step at {size} failed")
+        print(f"  multi-scale {SIZE}→{size} px: loss "
+              f"{float(m['loss/total']):.4f}")
+
+    # the trained model, folded, through both kernels: its head outputs
+    # and its detections against the plain versions
+    folded = fold_bn(model_from_state(state, cfg))
+    with torch.inference_mode():
+        predict(folded, images, cfg, SIZE)          # warm-up
+        reset_counts()
+        got = predict(folded, images, cfg, SIZE)
+        counts = read_counts()
+        features = folded(images)
+        with plain_kernels():
+            plain = predict(folded, images, cfg, SIZE)
+            plain_features = folded(images)
+    want = dict(fused_dw_pw=6, fused_stage_calls=3, fused_stage=16)
+    if counts != want:
+        raise AssertionError(f"fold→predict launch counts {counts}, expected "
+                             f"{want}")
+    for name, g, w in zip(("conf", "cls", "txtytwth"), features,
+                          plain_features):
+        check_close(f"trained, folded: head output {name}", g, w,
+                    torch.float32)
+    got, plain = ([t.cpu().numpy() for t in r] for r in (got, plain))
+    ties = check_detections("trained, folded", got, plain,
+                            tie_rtol=TIE_RTOL)
+    print(f"  fold→predict: launches {counts}; {int(got[3].sum())} "
+          f"detections match the plain-version predict slot for slot, "
+          f"{ties} of them near ties (scores within {TIE_RTOL:g} of each "
+          "other) that took each other's slots")
+
+    # times at batch 16, by CUDA events
+    torch.backends.cudnn.deterministic = False
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = time_ms(lambda: step(state, images, boxes, labels), iters=10)
+    peak = torch.cuda.max_memory_allocated()
+    busy_ms = device_busy_ms(lambda: step(state, images, boxes, labels))
+    targets = step.targets(boxes, labels)
+    total, _, params, stats = step.loss(state, images, targets)
+    grads = dict(zip(params, torch.autograd.grad(total,
+                                                 list(params.values()))))
+    parts = dict(
+        build_targets_ms=time_ms(lambda: step.targets(boxes, labels)),
+        forward_loss_ms=time_ms(lambda: step.loss(state, images, targets),
+                                iters=10),
+        backward_ms=backward_ms(step, state, images, targets),
+        update_ema_ms=time_ms(lambda: step.update(state, total.detach(),
+                                                  grads, stats), iters=10))
+    # one step from the initial state and one batch on the card and on the
+    # CPU, in f32 and in f64
+    small = (images[:CPU_BATCH], boxes[:CPU_BATCH], labels[:CPU_BATCH])
+    cpu_small = [t.cpu() for t in small]
+    t0 = time.perf_counter()
+    cpu_state, cpu_metrics = cpu_step(start.to("cpu"), *cpu_small)
+    cpu_s = time.perf_counter() - t0
+    ref_state, _ = cpu_step(start.to("cpu", torch.float64),
+                            cpu_small[0].double(), *cpu_small[1:])
+    card_state, card_metrics = step(start, *small)
+    for k in LOSS_NAMES:
+        g, w = float(card_metrics[k]), float(cpu_metrics[k])
+        if not abs(g - w) <= TRAIN_LOSS_RTOL * abs(w):
+            raise AssertionError(f"card vs CPU: {k} {g} vs {w}")
+    errors, worst_leaf = fields_close("card vs CPU", card_state, cpu_state,
+                                      ref_state)
+    print(f"  card vs CPU, one step from init at batch {CPU_BATCH}: losses "
+          f"within rtol {TRAIN_LOSS_RTOL}; error against the CPU's f64 step "
+          "over each field's norm, card / CPU f32: " + ", ".join(
+              f"{f} {e[0]:.3g} / {e[1]:.3g}" for f, e in errors.items())
+          + f"; the worst tensor against the CPU f32 step at {worst_leaf:.3g}"
+          f" of the CPU tests' leaf tolerance; the CPU f32 step took "
+          f"{cpu_s:.1f} s")
+    stats_out = dict(batch=TRAIN_BATCH, size=SIZE, step_ms=step_ms,
+                     img_per_s=TRAIN_BATCH / step_ms * 1e3,
+                     max_memory_allocated_bytes=peak,
+                     device_busy_ms=busy_ms, **parts,
+                     first_loss=float(first), last_loss=float(last),
+                     card_vs_cpu_f64_errors=errors,
+                     card_vs_cpu_worst_leaf=worst_leaf, cpu_step_s=cpu_s)
+    busy = ("not measured" if busy_ms is None else
+            f"{busy_ms:.2f} ms ({busy_ms / step_ms:.3f} of the step)")
+    print(f"  train step {step_ms:.2f} ms at batch {TRAIN_BATCH} "
+          f"({stats_out['img_per_s']:.1f} img/s), kernels busy {busy}, "
+          f"peak memory "
+          f"{peak / 2**30:.2f} GiB; build_targets "
+          f"{parts['build_targets_ms']:.3f} ms, forward+loss "
+          f"{parts['forward_loss_ms']:.2f} ms, backward "
+          f"{parts['backward_ms']:.2f} ms, update+EMA "
+          f"{parts['update_ema_ms']:.2f} ms")
+    return counts, stats_out
+
+
 def kernel_row(name, rows, per_fwd, launches, replaces):
     """One JSON row per kernel: its main-path calls of one forward summed
     (the two head pairs of a level share a shape, so one is timed twice)."""
@@ -616,7 +965,9 @@ def main():
         dw_rows = phase_fused_dw_pw(model)
     stage_rows = phase_fused_stage(model, torch.from_numpy(images_np).cuda())
     counts, stats = phase_main_path(images_np)
+    train_counts, train_stats = phase_training()
     print(json.dumps({"main_path": stats, "batch": BATCH, "size": SIZE,
+                      "training": train_stats,
                       "fused_dw_pw_per_shape": dw_rows,
                       "fused_stage_per_stage": stage_rows}))
     # the main path runs the heads in f32 with leaky/leaky
@@ -627,6 +978,8 @@ def main():
                    "yolo_nano_tpu/ops/pallas/fused_conv.py:108"),
         kernel_row("fused_stage", stage_rows, 1, counts["fused_stage"],
                    "yolo_nano_tpu/ops/pallas/fused_stage.py:223")]
+    for row in kernels:  # the training path's fold→predict, counted alone
+        row["launches_train_fold_predict"] = train_counts[row["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -309,3 +309,89 @@ def test_block_tiles_at_main_path_widths(dev):
         304 * 68 + 64 * 68 + 2 * 16 * 72)
     assert smem(2, 2, 240, 232) == 4 * 32 + 4 * (
         32 * 244 + 16 * 244 + 2 * 16 * 232)
+
+
+# ---------------------------------------------------------------------------
+# training on the card (no kernel of its own: unfolded convs, cuDNN f32)
+# ---------------------------------------------------------------------------
+
+def _train_batch(b=2, m=6, size=64, seed=0):
+    """Images U(−1, 1) and m gt slots per image, the last two padding."""
+    rng = np.random.default_rng(seed)
+    images = rng.uniform(-1, 1, (b, size, size, 3)).astype(np.float32)
+    x1, y1 = rng.uniform(0.0, 0.6, (2, b, m))
+    boxes = np.stack([x1, y1, x1 + rng.uniform(0.1, 0.4, (b, m)),
+                      y1 + rng.uniform(0.1, 0.4, (b, m))], -1)
+    labels = rng.integers(0, 20, (b, m)).astype(np.int32)
+    labels[:, -2:] = -1
+    return [torch.from_numpy(a) for a in
+            (images, np.clip(boxes, 0, 1).astype(np.float32), labels)]
+
+
+def test_train_step_on_cuda_matches_cpu(dev):
+    """One step from the same state and batch on the card and on the CPU
+    (1.0x, 256 px, batch 2, EMA on), and on the CPU in f64: the losses
+    within rtol 1e-4 of the CPU's f32 step; per state field, the card's
+    error against the f64 step (root of the summed squares) within 4x the
+    CPU f32 step's, plus 1e-7 of the field's norm, as chip_smoke.py holds
+    the card at 416 px."""
+    from yolo_nano_tpu_torch.config import YoloNanoConfig
+    from yolo_nano_tpu_torch.models.yolo_nano import init_yolo_nano
+    from yolo_nano_tpu_torch.train import (create_train_state,
+                                           make_optimizer, make_train_step)
+
+    cfg = YoloNanoConfig(num_classes=20)
+    tx = make_optimizer(lambda count: 1e-3)
+    model = init_yolo_nano(torch.Generator().manual_seed(0), cfg,
+                           device="cpu")
+    state = create_train_state(model, tx, use_ema=True)
+    images, boxes, labels = _train_batch(size=256)
+    cpu_step = make_train_step(cfg, tx, 256, device="cpu")
+    cpu, cpu_m = cpu_step(state, images, boxes, labels)
+    ref, _ = cpu_step(state.to("cpu", torch.float64), images.double(), boxes,
+                      labels)
+    got, got_m = make_train_step(cfg, tx, 256)(
+        state.to(dev), *(t.to(dev) for t in (images, boxes, labels)))
+    for k, w in cpu_m.items():
+        torch.testing.assert_close(got_m[k].cpu(), w, rtol=1e-4, atol=0)
+    g, c, r = got.flat(), cpu.flat(), ref.flat()
+    assert g.keys() == r.keys()
+    for field in ("params", "stats", "trace", "ema_params", "ema_stats"):
+        keys = [k for k in r if k.startswith(field + "/")]
+        card_err, cpu_err, norm = (sum(t.square().sum().item() for t in ts)
+                                   ** 0.5 for ts in (
+            [g[k].cpu().double() - r[k] for k in keys],
+            [c[k].double() - r[k] for k in keys], [r[k] for k in keys]))
+        assert card_err <= 4 * cpu_err + 1e-7 * norm, (field, card_err,
+                                                      cpu_err)
+
+
+def test_build_targets_on_cuda_with_collisions_matches_cpu(dev):
+    """Duplicated gts (positive/positive) and concentric boxes of growing
+    size (ignore rows on each other's positives): CUDA's index_put_ picks
+    any writer among duplicates, so the port's writes hold none that
+    matter; the result equals the CPU's (tw, th within 1e-6)."""
+    from yolo_nano_tpu_torch.config import YoloNanoConfig
+    from yolo_nano_tpu_torch.losses.targets import build_targets
+
+    cfg = YoloNanoConfig(num_classes=20)
+    rng = np.random.default_rng(0)
+    boxes = np.zeros((3, 40, 4), np.float32)
+    labels = np.full((3, 40), -1, np.int32)
+    for i in range(3):
+        for j in range(0, 40, 8):
+            c = rng.uniform(0.2, 0.8, 2)
+            base = rng.uniform(0.03, 0.15)
+            for k in range(4):
+                half = base * 1.15 ** k / 2
+                boxes[i, j + 2 * k:j + 2 * k + 2] = np.clip(
+                    np.concatenate([c - half, c + half]), 0, 1)
+                labels[i, j + 2 * k:j + 2 * k + 2] = rng.integers(0, 20, 2)
+    tb, tl = torch.from_numpy(boxes), torch.from_numpy(labels)
+    want = build_targets(tb, tl, cfg, 416)
+    got = build_targets(tb.to(dev), tl.to(dev), cfg, 416).cpu()
+    exact = [0, 1, 2, 3, 6, 7, 8, 9, 10]
+    assert torch.equal(got[..., exact], want[..., exact])
+    torch.testing.assert_close(got[..., 4:6], want[..., 4:6], rtol=0,
+                               atol=1e-6)
+    assert (want[..., 0] == 1).sum() > 0 and (want[..., 0] == -1).sum() > 0

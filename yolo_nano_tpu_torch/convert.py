@@ -9,6 +9,11 @@ transpose.
 On disk the port reads a plain `.npz`: keys are '/'-joined tree paths
 (`backbone/stage2/0/branch1/dw/w`), list positions as integers, plus the
 artifact's `config.json` content under the key `config.json`.
+
+Training state goes both ways: `named_from_tree` / `tree_from_named` map a
+tree of parameters (or of anything shaped like them: the momentum, the EMA)
+or of stats to the modules' names and back, and `train_state_from_jax` /
+`train_state_to_jax` carry a whole train state.
 """
 
 from __future__ import annotations
@@ -44,8 +49,9 @@ def conv_unit(p: dict, s: Optional[dict] = None, *, stride: int = 1,
     if "scale" in p:
         bn = (_t(p["scale"]), _t(p["bias"]), _t(s["mean"]), _t(s["var"]))
     bias = _t(p["b"]) if "b" in p else None
+    # built for inference (eval-mode BN, frozen); init_yolo_nano trains it
     return ConvUnit(_t(w.transpose(3, 2, 0, 1)), bias, bn, stride=stride,
-                    groups=groups, act=act)
+                    groups=groups, act=act).requires_grad_(False).eval()
 
 
 def _sub(stats, key):
@@ -78,7 +84,7 @@ def build_shufflenetv2(params: dict, stats: Optional[dict] = None
         stages.append(ShuffleStage(blocks))
     conv1 = conv_unit(params["conv1"], _sub(stats, "conv1"), stride=2,
                       act="relu")
-    return ShuffleNetV2(conv1, *stages)
+    return ShuffleNetV2(conv1, *stages).eval()
 
 
 def build_yolo_nano(params: dict, stats: Optional[dict],
@@ -161,3 +167,75 @@ def load_model(path: str, **overrides) -> Tuple[YoloNano, YoloNanoConfig,
         raise ValueError(f"{path} holds an unfolded tree without BN stats")
     cfg = config_from_json(meta, **overrides)
     return build_yolo_nano(tree, None, cfg), cfg, meta
+
+
+# ---------------------------------------------------------------------------
+# training state, both ways
+# ---------------------------------------------------------------------------
+
+# JAX leaf name → ConvUnit attribute
+_LEAF_TO_ATTR = {"w": "weight", "b": "bias", "scale": "bn_scale",
+                "bias": "bn_bias", "mean": "bn_mean", "var": "bn_var"}
+_ATTR_TO_LEAF = {v: k for k, v in _LEAF_TO_ATTR.items()}
+
+
+def named_from_tree(tree, device=None) -> dict:
+    """A JAX-layout params or stats tree → {module name: tensor} (copies),
+    conv weights HWIO → OIHW."""
+    out = {}
+    for key, a in flatten_tree(tree).items():
+        *path, leaf = key.split("/")
+        a = np.asarray(a, np.float32)
+        if leaf == "w":
+            a = a.transpose(3, 2, 0, 1)
+        out[".".join(path + [_LEAF_TO_ATTR[leaf]])] = torch.tensor(
+            np.ascontiguousarray(a), device=device)
+    return out
+
+
+def tree_from_named(named: dict):
+    """{module name: tensor} → JAX-layout tree of numpy arrays, conv
+    weights OIHW → HWIO."""
+    flat = {}
+    for name, t in named.items():
+        *path, attr = name.split(".")
+        a = t.detach().cpu().numpy()
+        if attr == "weight":
+            a = a.transpose(2, 3, 1, 0)
+        flat["/".join(path + [_ATTR_TO_LEAF[attr]])] = a
+    return unflatten_tree(flat)
+
+
+def train_state_from_jax(params, stats, trace, count, step, ema_params=None,
+                         ema_stats=None, device=None):
+    """The port's TrainState from the JAX one's trees (numpy leaves): params,
+    stats, the optax momentum trace and count, step, EMA."""
+    from yolo_nano_tpu_torch.train.state import TrainState
+
+    to = lambda t: None if t is None else named_from_tree(t, device)  # noqa: E731
+    scalar = lambda v: torch.tensor(int(np.asarray(v)), dtype=torch.int32,  # noqa: E731
+                                    device=device)
+    return TrainState(to(params), to(stats), to(trace), scalar(count),
+                      scalar(step), to(ema_params), to(ema_stats))
+
+
+def train_state_to_jax(state) -> dict:
+    """The port's TrainState → {'params', 'stats', 'trace', 'ema_params',
+    'ema_stats': JAX-layout numpy trees (None where absent), 'count',
+    'step': ints}."""
+    out = {f: None if getattr(state, f) is None
+           else tree_from_named(getattr(state, f))
+           for f in ("params", "stats", "trace", "ema_params", "ema_stats")}
+    out.update(count=int(state.count), step=int(state.step))
+    return out
+
+
+def model_from_state(state, cfg: YoloNanoConfig, ema: bool = False
+                     ) -> YoloNano:
+    """An eval-mode model holding a train state's weights (its EMA with
+    ema=True), on the state's device."""
+    params, stats = ((state.ema_params, state.ema_stats) if ema
+                     else (state.params, state.stats))
+    model = build_yolo_nano(tree_from_named(params), tree_from_named(stats),
+                            cfg)
+    return model.to(state.step.device)

@@ -6,7 +6,11 @@ names mirror the JAX parameter tree (`conv1`, `stage2.0.branch1.dw`, ...).
 
 On a BN-folded model each stage runs as one `fused_stage` call: on the card
 that is the CUDA kernel, one launch per block; on the CPU its plain version.
-An unfolded model (eval-mode BN) runs block by block.
+An unfolded model runs block by block, with eval-mode BN, or in train mode
+with batch statistics (each unit writes its new running stats).
+
+`init_shufflenetv2` draws a JAX-layout (params, stats) tree with the
+reference init: conv weights N(0, 1/(cin/groups)), BN scale 1, bias 1e-4.
 """
 
 from __future__ import annotations
@@ -16,8 +20,51 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
+from yolo_nano_tpu_torch.config import SHUFFLENETV2_CHANNELS, SHUFFLENETV2_REPEATS
 from yolo_nano_tpu_torch.ops.kernels.fused_stage import fused_stage, prepare_stage
-from yolo_nano_tpu_torch.ops.nn import ConvUnit, channel_shuffle, max_pool_3x3_s2
+from yolo_nano_tpu_torch.ops.nn import (ConvUnit, channel_shuffle, init_bn,
+                                        init_conv, max_pool_3x3_s2)
+
+
+def _init_unit(gen, kh, cin, cout, groups=1):
+    """Conv-BN unit, weights N(0, 1/(cin/groups))."""
+    p = init_conv(gen, kh, kh, cin, cout, groups=groups,
+                  std=1.0 / (cin // groups))
+    bn_p, bn_s = init_bn(cout)
+    return {**p, **bn_p}, bn_s
+
+
+def _init_block(gen, cin, cout, stride):
+    branch = cout // 2
+    p, s = {}, {}
+    if stride > 1:  # branch1: dw3×3/s → 1×1
+        d_p, d_s = _init_unit(gen, 3, cin, cin, groups=cin)
+        w_p, w_s = _init_unit(gen, 1, cin, branch)
+        p["branch1"], s["branch1"] = {"dw": d_p, "pw": w_p}, {"dw": d_s,
+                                                            "pw": w_s}
+    b2_in = cin if stride > 1 else branch
+    p["branch2"], s["branch2"] = {}, {}
+    for name, args in (("pw1", (1, b2_in, branch)),
+                       ("dw", (3, branch, branch, branch)),
+                       ("pw2", (1, branch, branch))):
+        p["branch2"][name], s["branch2"][name] = _init_unit(gen, *args)
+    return p, s
+
+
+def init_shufflenetv2(gen: torch.Generator, model_size: str = "1.0x"):
+    """→ (params, stats), JAX-layout trees of numpy arrays."""
+    channels = SHUFFLENETV2_CHANNELS[model_size]
+    stem_p, stem_s = _init_unit(gen, 3, 3, channels[0])
+    params, stats = {"conv1": stem_p}, {"conv1": stem_s}
+    cin = channels[0]
+    for si, (repeats, cout) in enumerate(zip(SHUFFLENETV2_REPEATS,
+                                             channels[1:4])):
+        blocks = [_init_block(gen, cin if bi == 0 else cout, cout,
+                              2 if bi == 0 else 1) for bi in range(repeats)]
+        params[f"stage{si + 2}"] = [bp for bp, _ in blocks]
+        stats[f"stage{si + 2}"] = [bs for _, bs in blocks]
+        cin = cout
+    return params, stats
 
 
 class ShuffleBlock(nn.Module):

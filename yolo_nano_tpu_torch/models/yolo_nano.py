@@ -8,20 +8,30 @@ channels_last memory.
 Head channel layout: per level the A·(1+C+4) output channels are
 [conf ×A | (classes ×C) anchor-major | txtytwth ×4 anchor-major]; levels are
 concatenated HW-major, so prediction row n = level_offset + cell·A + anchor.
+
+Training: `init_yolo_nano` draws a model in train mode; `loss_forward` runs
+it on a target tensor from `losses.targets.build_targets`. Training runs
+unfolded convs (BN sees real activations); a trained model is folded with
+`utils.fuse_bn.fold_bn` before it predicts through the kernels.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 from torch import nn
 
 from yolo_nano_tpu_torch.config import YoloNanoConfig
-from yolo_nano_tpu_torch.models.shufflenetv2 import ShuffleNetV2
-from yolo_nano_tpu_torch.ops.decode import decode_boxes_gathered
+from yolo_nano_tpu_torch.losses.losses import detection_loss
+from yolo_nano_tpu_torch.models.shufflenetv2 import (ShuffleNetV2,
+                                                     init_shufflenetv2)
+from yolo_nano_tpu_torch.ops.decode import (Grids, decode_boxes,
+                                            decode_boxes_gathered, make_grids)
 from yolo_nano_tpu_torch.ops.kernels.fused_conv import fused_dw_pw
 from yolo_nano_tpu_torch.ops.nms import nms_on_candidates, stable_topk
 from yolo_nano_tpu_torch.ops.nn import (ConvUnit, downsample2x_nearest,
-                                        upsample2x_nearest)
+                                        init_bn, init_conv, upsample2x_nearest)
 
 
 class Head(nn.Module):
@@ -163,3 +173,108 @@ def predict(model: YoloNano, images: torch.Tensor, cfg: YoloNanoConfig,
     conf_pred, cls_pred, txtytwth_pred = model(images)
     score, cls = scores_from_features(conf_pred, cls_pred)
     return postprocess_scored(txtytwth_pred, score, cls, cfg, input_size)
+
+
+# ---------------------------------------------------------------------------
+# init
+# ---------------------------------------------------------------------------
+
+def _init_conv_block(gen, k, cin, cout, groups=1):
+    """Conv(bias) + BN + LeakyReLU; BN bias starts at 0 in neck and heads."""
+    p = init_conv(gen, k, k, cin, cout, groups=groups, bias=True)
+    bn_p, bn_s = init_bn(cout, bias_init=0.0)
+    return {**p, **bn_p}, bn_s
+
+
+def _init_head(gen, c, out_ch, num_anchors):
+    """dw3×3 → 1×1 → dw3×3 → 1×1 → plain 1×1 with bias, whose objectness
+    slots start at −log((1 − 0.01)/0.01)."""
+    p, s = {}, {}
+    for name, k, groups in (("dw0", 3, c), ("pw0", 1, 1), ("dw1", 3, c),
+                            ("pw1", 1, 1)):
+        p[name], s[name] = _init_conv_block(gen, k, c, c, groups)
+    p["out"] = init_conv(gen, 1, 1, c, out_ch, bias=True)
+    p["out"]["b"][:num_anchors] = -math.log((1.0 - 0.01) / 0.01)
+    return p, s
+
+
+def init_yolo_nano_tree(gen: torch.Generator, cfg: YoloNanoConfig):
+    """→ (params, stats): JAX-layout trees of numpy arrays for the
+    detector."""
+    if cfg.backbone not in ("0.5x", "1.0x", "1.5x", "2.0x"):
+        raise ValueError(f"unsupported backbone {cfg.backbone!r}")
+    bb_p, bb_s = init_shufflenetv2(gen, cfg.backbone)
+    params, stats = {"backbone": bb_p}, {"backbone": bb_s}
+    nc = cfg.neck_channels
+    for i, cin in enumerate(cfg.backbone_channels[1:4]):
+        params[f"lateral{i}"], stats[f"lateral{i}"] = _init_conv_block(
+            gen, 1, cin, nc)
+    for i in range(4):
+        params[f"smooth{i}"], stats[f"smooth{i}"] = _init_conv_block(
+            gen, 3, nc, nc)
+    for i in range(3):
+        params[f"head{i}"], stats[f"head{i}"] = _init_head(
+            gen, nc, cfg.head_out_channels, cfg.num_anchors_per_level)
+    return params, stats
+
+
+def init_yolo_nano(gen: torch.Generator, cfg: YoloNanoConfig,
+                   device=None) -> YoloNano:
+    """A freshly initialised detector in train mode, with trainable
+    parameters, on CUDA unless `device` names another. The draws come from
+    `gen` on the CPU, so a seed gives the same weights on every device."""
+    from yolo_nano_tpu_torch.convert import build_yolo_nano
+    from yolo_nano_tpu_torch.serving import resolve_device
+
+    dev = resolve_device(device)
+    model = build_yolo_nano(*init_yolo_nano_tree(gen, cfg), cfg)
+    return model.requires_grad_(True).train().to(dev)
+
+
+# ---------------------------------------------------------------------------
+# training forward
+# ---------------------------------------------------------------------------
+
+def _area(wh: torch.Tensor) -> torch.Tensor:
+    """w·h of [..., 2]; not torch.prod, whose backward asks the host whether
+    any factor is 0."""
+    return wh[..., 0] * wh[..., 1]
+
+
+def iou_score(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
+    """Elementwise IoU of corner boxes [..., 4]; the intersection counts only
+    where tl < br on both axes, and 1e-14 guards 0-area against 0-area."""
+    tl = torch.maximum(boxes_a[..., :2], boxes_b[..., :2])
+    br = torch.minimum(boxes_a[..., 2:], boxes_b[..., 2:])
+    area_a = _area(boxes_a[..., 2:] - boxes_a[..., :2])
+    area_b = _area(boxes_b[..., 2:] - boxes_b[..., :2])
+    en = (tl < br).all(-1).to(boxes_a.dtype)
+    area_i = _area(br - tl) * en
+    return area_i / (area_a + area_b - area_i + 1e-14)
+
+
+def loss_from_features(conf_pred, cls_pred, txtytwth_pred, target,
+                       input_size: int, grids: Grids):
+    """Head outputs and the [B,N,11] target → (conf, cls, bbox, iou) losses.
+    The IoU of each decoded box with its target box is the objectness
+    label, without gradient; the IoU loss keeps its gradient through the
+    decode. The losses run in f32 at least (f64 stays f64)."""
+    b = conf_pred.shape[0]
+    wide = torch.promote_types(conf_pred.dtype, torch.float32)
+    txtytwth = txtytwth_pred.to(wide)
+    boxes = decode_boxes(txtytwth, grids) / input_size
+    iou = iou_score(boxes, target[..., 7:11])[..., None]
+    label = torch.cat([iou.detach(), target[..., :7].to(wide)], -1)
+    n = boxes.shape[1]
+    return detection_loss(conf_pred.to(wide), cls_pred.to(wide),
+                          txtytwth.reshape(b, n, 4), iou, label)
+
+
+def loss_forward(model: YoloNano, images: torch.Tensor, target: torch.Tensor,
+                 cfg: YoloNanoConfig, input_size: int):
+    """Training forward: images [B,S,S,3] and target [B,N,11] → (conf, cls,
+    bbox, iou) losses. In train mode the model's BN units write their new
+    running stats into its buffers. (The train step calls
+    `loss_from_features` with grids already on the device.)"""
+    grids = make_grids(cfg, input_size, images.device)
+    return loss_from_features(*model(images), target, input_size, grids)

@@ -3,26 +3,68 @@
 Points that keep the port equal to the JAX package:
   * torch-style symmetric padding (k-1)//2 on both sides, also for stride-2
     convs (XLA "SAME" would pad (0, 1) on even sizes and shift every window);
-  * eval-mode BatchNorm with eps 1e-5, written as (y - mean)·γ/√(σ²+ε) + β;
+  * BatchNorm with eps 1e-5, written as (y - mean)·γ/√(σ²+ε) + β: in eval
+    mode with the running stats; in train mode with the batch mean and the
+    two-pass biased variance over (N, H, W) in f32, while the running var
+    takes the unbiased estimate var·n/(n−1), momentum 0.1;
   * LeakyReLU with slope 0.1;
   * 3×3/s2 max-pool with a −inf pad;
   * channel_shuffle mapping out[j·g + i] = in[i·C/g + j];
   * nearest 2× up = each pixel repeated 2×2, nearest 2× down = x[::2, ::2].
 
 A conv unit is a `ConvUnit`: an OIHW conv with an optional bias, an optional
-eval-mode BN, and an activation. `utils.fuse_bn.fold_bn` folds its BN away.
+BN, and an activation. `utils.fuse_bn.fold_bn` folds its BN away.
+
+Initializers draw from an explicit `torch.Generator` on the CPU, with the JAX
+package's distributions, into JAX-layout (HWIO) numpy arrays: `convert`
+builds modules from such a tree.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 BN_EPS = 1e-5
+BN_MOMENTUM = 0.1  # new = (1 - m)·old + m·batch
 LEAKY_SLOPE = 0.1
+
+
+# ---------------------------------------------------------------------------
+# initializers (JAX layout: HWIO weights, I = cin/groups)
+# ---------------------------------------------------------------------------
+
+def _uniform(gen, shape, bound):
+    return ((torch.rand(shape, generator=gen) * 2 - 1) * bound).numpy()
+
+
+def init_conv(gen: torch.Generator, kh: int, kw: int, cin: int, cout: int,
+              groups: int = 1, bias: bool = False,
+              std: Optional[float] = None) -> dict:
+    """std None: torch's default kaiming-uniform (a=√5), bound
+    √(2/6)·√(3/fan_in); std a float: N(0, std). The bias is U(±1/√fan_in)."""
+    shape = (kh, kw, cin // groups, cout)
+    fan_in = kh * kw * (cin // groups)
+    if std is None:
+        w = _uniform(gen, shape, math.sqrt(2.0 / 6.0) * math.sqrt(3.0 / fan_in))
+    else:
+        w = (std * torch.randn(shape, generator=gen)).numpy()
+    p = {"w": w}
+    if bias:
+        p["b"] = _uniform(gen, (cout,), 1.0 / math.sqrt(fan_in))
+    return p
+
+
+def init_bn(cout: int, bias_init: float = 1e-4):
+    """(params, stats): scale 1, bias `bias_init`; mean 0, var 1."""
+    f32 = np.float32
+    return ({"scale": np.ones(cout, f32), "bias": np.full(cout, bias_init, f32)},
+            {"mean": np.zeros(cout, f32), "var": np.ones(cout, f32)})
 
 
 def activate(x: torch.Tensor, act: Optional[str]) -> torch.Tensor:
@@ -35,23 +77,43 @@ def activate(x: torch.Tensor, act: Optional[str]) -> torch.Tensor:
     raise ValueError(f"unknown activation {act!r}")
 
 
+def batch_norm_train(y: torch.Tensor, scale, bias, mean, var):
+    """Train-mode BN of y [B,C,H,W] → (out, new running mean, new running
+    var); the running stats are not written."""
+    yf = y.to(torch.promote_types(y.dtype, torch.float32))
+    batch_mean = yf.mean((0, 2, 3))
+    # two-pass variance: E[x²]−E[x]² cancels catastrophically in f32
+    centred = yf - batch_mean[:, None, None]
+    batch_var = centred.square().mean((0, 2, 3))
+    n = y.shape[0] * y.shape[2] * y.shape[3]
+    with torch.no_grad():
+        new_mean = (1 - BN_MOMENTUM) * mean + BN_MOMENTUM * batch_mean
+        new_var = ((1 - BN_MOMENTUM) * var
+                   + BN_MOMENTUM * (batch_var * (n / max(n - 1, 1))))
+    inv = torch.rsqrt(batch_var + BN_EPS) * scale
+    out = centred * inv[:, None, None] + bias[:, None, None]
+    return out.to(y.dtype), new_mean, new_var
+
+
 class ConvUnit(nn.Module):
-    """Conv (+bias) (+eval BN) + activation, padding (k-1)//2.
+    """Conv (+bias) (+BN) + activation, padding (k-1)//2.
 
     weight: OIHW; `bn` = (scale, bias, mean, var) or None for a folded unit.
+    In train mode the BN normalizes with the batch statistics and writes the
+    new running stats into `bn_mean` and `bn_var` (the train step hands it
+    copies, so that its NaN guard can keep the old ones).
     """
 
     def __init__(self, weight: torch.Tensor, bias: Optional[torch.Tensor] = None,
                  bn=None, *, stride: int = 1, groups: int = 1,
                  act: Optional[str] = None):
         super().__init__()
-        self.weight = nn.Parameter(weight, requires_grad=False)
-        self.bias = (nn.Parameter(bias, requires_grad=False)
-                     if bias is not None else None)
+        self.weight = nn.Parameter(weight)
+        self.bias = nn.Parameter(bias) if bias is not None else None
         if bn is not None:
             scale, beta, mean, var = bn
-            self.bn_scale = nn.Parameter(scale, requires_grad=False)
-            self.bn_bias = nn.Parameter(beta, requires_grad=False)
+            self.bn_scale = nn.Parameter(scale)
+            self.bn_bias = nn.Parameter(beta)
             self.register_buffer("bn_mean", mean)
             self.register_buffer("bn_var", var)
         self.has_bn = bn is not None
@@ -66,7 +128,13 @@ class ConvUnit(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.conv2d(x, self.weight, self.bias, stride=self.stride,
                      padding=(self.kernel_size - 1) // 2, groups=self.groups)
-        if self.has_bn:
+        if self.has_bn and self.training:
+            y, new_mean, new_var = batch_norm_train(
+                y, self.bn_scale, self.bn_bias, self.bn_mean, self.bn_var)
+            with torch.no_grad():
+                self.bn_mean.copy_(new_mean)
+                self.bn_var.copy_(new_var)
+        elif self.has_bn:
             inv = torch.rsqrt(self.bn_var + BN_EPS) * self.bn_scale
             y = ((y - self.bn_mean[:, None, None]) * inv[:, None, None]
                  + self.bn_bias[:, None, None])

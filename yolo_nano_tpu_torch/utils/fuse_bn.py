@@ -28,7 +28,8 @@ def fold_unit(unit: ConvUnit) -> ConvUnit:
     b = unit.bias if unit.bias is not None else torch.zeros_like(unit.bn_mean)
     b = (b - unit.bn_mean) * factor + unit.bn_bias
     return ConvUnit(w.detach().clone(), b.detach().clone(), None,
-                    stride=unit.stride, groups=unit.groups, act=unit.act)
+                    stride=unit.stride, groups=unit.groups,
+                    act=unit.act).requires_grad_(False)
 
 
 def _fold_children(module: nn.Module) -> None:
