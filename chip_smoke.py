@@ -8,7 +8,8 @@
 
 Phases, each of which raises on failure (exit code non-zero, no result line):
   1. device and build: needs CUDA; prints the card's name and power limit,
-     builds both kernels from yolo_nano_tpu_torch/csrc with nvcc;
+     builds both kernels (f32 and bf16 launches) from
+     yolo_nano_tpu_torch/csrc with nvcc;
   2. each kernel against its plain PyTorch version on the card, at the
      main-path shapes for batch 32 (1.0x COCO model, 416 px): max abs error
      and tolerance, kernel / plain / library ms, and the bound; each f32
@@ -30,7 +31,18 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
      from the initial state at batch 4 on the card against the same step on
      the CPU in f32 and in f64: per state field the card's error against
      f64 within 4x the CPU f32's;
-  5. a JSON line of kernel numbers, the card line, and the result line.
+  5. bf16 inference: the 0.5x COCO artifact (bf16 weights) through
+     load_predictor at both operating points, batch 32: each block's bf16
+     stage kernel against its plain block in bf16 ulps of the block's
+     max|ref| and the share of bit-equal elements, kernel / plain ms and
+     bound per stage, bf16
+     fused_dw_pw at the heads; 16 bf16 fused_stage and 6 bf16 fused_dw_pw
+     launches per forward; detections matched to the plain-version
+     predict's at bf16 tolerance (match_detections); img/s and forward ms,
+     and the forward's device time by kernel. Then the 1.0x artifact through make_predict_fn
+     at its bf16 default (the stage kernel at c2 up to 232), checked the
+     same way;
+  6. a JSON line of kernel numbers, the card line, and the result line.
 
 A bound is the least time the card could take for a kernel's work: the
 larger of its bytes (each input read once, each output written once) over
@@ -61,6 +73,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 NPZ = os.path.join(ROOT, "yolo_nano_tpu_torch", "assets", "bench_coco416.npz")
+NPZ_05X = os.path.join(ROOT, "yolo_nano_tpu_torch", "assets",
+                       "bench_coco416_05x.npz")
 BATCH = 32
 SIZE = 416
 HBM_BYTES_PER_S = 3.35e12
@@ -82,6 +96,23 @@ TRAIN_LEAF_RTOL, TRAIN_LEAF_ATOL, TRAIN_FIELD_ATOL = 1e-3, 1e-5, 5e-7
 # which moves a score by about 2e-4 of itself; two detections of one class
 # 1e-5 apart took each other's slot, as did two of two classes 1e-6 apart
 TIE_RTOL = 1e-3
+# the bf16 stage kernel against its plain block on the same input: within
+# BF16_BLOCK_ULPS bf16 ulps of the block output's max|ref|, and at least
+# BF16_BLOCK_EQUAL of the elements bit-equal. Both round every op to bf16,
+# each from its own f32 sum order, so a rounding on a boundary flips by an
+# ulp of its value, and a flip in pw1 moves the depthwise and pw2 after it
+# by up to an ulp of pw1's values, which can be tens of ulps of a small
+# output (20 measured in a stage-3 block of the 0.5x artifact)
+BF16_BLOCK_ULPS = 1
+BF16_BLOCK_EQUAL = 0.99
+# bf16 detections (match_detections): a flipped bf16 rounding moves a head
+# logit by an ulp (1/32 to 1/16 at 4 to 16), and a score by e^ulp − 1 of
+# itself, 3% to 6.5% (10% for two ulps); one detection more or fewer on a
+# side then shifts every later slot, so the two sides are matched, not
+# compared slot for slot. (Two boxes of one class at IoU 0.66 swapped
+# their NMS order between the kernel and the plain path, their scores
+# 0.162 and 0.176 apart: 8% of the larger.)
+BF16_MATCH = dict(score_atol=5e-3, score_rtol=0.1, iou_tol=0.02)
 LOSS_NAMES = ("loss/total", "loss/obj", "loss/cls", "loss/bbox", "loss/iou")
 OPERATING_POINTS = {
     "serving": dict(conf_thresh=0.1, nms_thresh=0.45, pre_topk=128),
@@ -251,10 +282,11 @@ def dw_pw_f64(x, dw_w, dw_b, pw_w, pw_b, act_mid, act_out):
     return activate(y, act_out)
 
 
-def phase_fused_dw_pw(model):
-    """Head dw→pw pairs at 52², 26², 13² (C = 96), both act pairs, f32 and
-    bf16, with the trained head weights of each level. The f32 rows are
-    also held to f64."""
+def phase_fused_dw_pw(model, dtypes=(torch.float32, torch.bfloat16),
+                      acts=(("leaky", "leaky"), (None, "relu")), phase="[2]"):
+    """Head dw→pw pairs at 52², 26², 13² (C = 96), each act pair and dtype,
+    with the trained head weights of each level. The f32 rows are also
+    held to f64."""
     import torch.nn.functional as F
 
     from yolo_nano_tpu_torch.ops.kernels.fused_conv import (fused_dw_pw,
@@ -262,21 +294,21 @@ def phase_fused_dw_pw(model):
                                                             tile_shape)
     from yolo_nano_tpu_torch.ops.nn import activate
 
-    print(f"[2] fused_dw_pw vs plain, batch {BATCH}")
+    print(f"{phase} fused_dw_pw vs plain, batch {BATCH}")
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
     for level, hw in enumerate((SIZE // 8, SIZE // 16, SIZE // 32)):
         head = getattr(model, f"head{level}")
         dw_w, dw_b, pw_w, pw_b = head._pairs()[0]
         c, cout = pw_w.shape
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in dtypes:
             x = torch.randn(BATCH, hw, hw, c, device="cuda", generator=gen,
                             dtype=torch.float32).to(dtype).permute(0, 3, 1, 2)
             w = pw_w.to(dtype)
             dw_conv = dw_w.permute(2, 0, 1).unsqueeze(1).to(dtype)
             pw_conv = w.t()[:, :, None, None]
             tile = tile_shape(BATCH, hw, hw, c, cout, x.element_size())
-            for act_mid, act_out in (("leaky", "leaky"), (None, "relu")):
+            for act_mid, act_out in acts:
                 def kern():
                     return fused_dw_pw(x, dw_w, dw_b, w, pw_b,
                                        act_mid=act_mid, act_out=act_out)
@@ -505,9 +537,9 @@ def reset_counts():
     from yolo_nano_tpu_torch.ops.kernels.fused_conv import fused_dw_pw
     from yolo_nano_tpu_torch.ops.kernels.fused_stage import fused_stage
 
-    fused_dw_pw.launches = 0
+    fused_dw_pw.launches = fused_dw_pw.launches_bf16 = 0
     fused_stage.calls = 0
-    fused_stage.launches = 0
+    fused_stage.launches = fused_stage.launches_bf16 = 0
 
 
 def read_counts():
@@ -515,8 +547,19 @@ def read_counts():
     from yolo_nano_tpu_torch.ops.kernels.fused_stage import fused_stage
 
     return dict(fused_dw_pw=fused_dw_pw.launches,
+                fused_dw_pw_bf16=fused_dw_pw.launches_bf16,
                 fused_stage_calls=fused_stage.calls,
-                fused_stage=fused_stage.launches)
+                fused_stage=fused_stage.launches,
+                fused_stage_bf16=fused_stage.launches_bf16)
+
+
+def want_counts(forwards: int, bf16: bool) -> dict:
+    """Launches of `forwards` forwards: 16 stage blocks and 6 head pairs
+    each, all in bf16 or none."""
+    return dict(fused_dw_pw=6 * forwards,
+                fused_dw_pw_bf16=6 * forwards * bf16,
+                fused_stage_calls=3 * forwards, fused_stage=16 * forwards,
+                fused_stage_bf16=16 * forwards * bf16)
 
 
 def check_detections(point, got, plain, tol=1e-4, tie_rtol=0.0) -> int:
@@ -542,25 +585,160 @@ def check_detections(point, got, plain, tol=1e-4, tie_rtol=0.0) -> int:
     return int(ties.sum())
 
 
-def phase_main_path(images_np):
+def _iou(a, b) -> float:
+    tl, br = np.maximum(a[:2], b[:2]), np.minimum(a[2:], b[2:])
+    inter = np.prod(np.clip(br - tl, 0, None))
+    return inter / (np.prod(a[2:] - a[:2]) + np.prod(b[2:] - b[:2]) - inter)
+
+
+def match_detections(got, want, conf_thresh, nms_thresh, score_atol,
+                     score_rtol, iou_tol, cutoffs=None) -> dict:
+    """Two bf16 predicts' detections, image by image: matched one to one
+    by class with box IoU >= 0.9 and |Δscore| <= score_atol +
+    score_rtol·score; then the rest one to one across classes by the same
+    rule (a class flip: the top two class logits within bf16's precision
+    of each other). A detection left unmatched must be explained:
+      near_conf: within that tolerance of conf_thresh;
+      swapped: within it of an unmatched detection of its class on the
+        other side (the two took each other's place);
+      nms_flip: an IoU within iou_tol of nms_thresh with a detection of its
+        class kept above it on its side (an NMS suppression flipped);
+      nms_chain: an IoU above nms_thresh − iou_tol with a detection of its
+        class on the other side that scores above it less the tolerance
+        (it would be suppressed there: a flip earlier in NMS's order
+        changed which of the two survived);
+      class_nms: the same with a detection of another class (there its top
+        two class logits gave that class, and NMS, per class, suppressed
+        it);
+      cut: within the tolerance of a cut, a full side's lowest score
+        (max_det) or, from `cutoffs` [B, 2], a side's pre_topk-th
+        candidate score.
+    → the count of each, and "score_rdiff", the largest |Δscore| / score
+    over the matched pairs; raises, naming each detection no rule explains
+    and its nearest on the other side."""
+    tol = lambda s: score_atol + score_rtol * s  # noqa: E731
+    counts = dict(matched=0, class_flip=0, near_conf=0, swapped=0,
+                  nms_flip=0, nms_chain=0, class_nms=0, cut=0,
+                  score_rdiff=0.0)
+    unexplained = []
+    for i in range(got[0].shape[0]):
+        sides = [[(o[0][i][k], float(o[1][i][k]), int(o[2][i][k]))
+                  for k in np.flatnonzero(o[3][i])] for o in (got, want)]
+        used = [set(), set()]
+        for key, same_class in (("matched", True), ("class_flip", False)):
+            for wi, (wb, ws, wc) in enumerate(sides[1]):
+                if wi in used[1]:
+                    continue
+                cands = [(_iou(wb, gb), gi) for gi, (gb, gs, gc)
+                         in enumerate(sides[0]) if gi not in used[0]
+                         and (gc == wc) == same_class
+                         and abs(gs - ws) <= tol(max(gs, ws))]
+                best = max(cands, default=(0.0, None))
+                if best[0] >= 0.9:
+                    used[0].add(best[1])
+                    used[1].add(wi)
+                    counts[key] += 1
+                    gs = sides[0][best[1]][1]
+                    counts["score_rdiff"] = max(counts["score_rdiff"],
+                                                abs(gs - ws) / max(gs, ws))
+        left = [[d for j, d in enumerate(side) if j not in used[k]]
+                for k, side in enumerate(sides)]
+        # the lowest score of a side that fills every slot
+        cuts = [min(d[1] for d in side) for side in sides
+                if len(side) == got[3].shape[1]]
+        if cutoffs is not None:
+            cuts += [float(c) for c in cutoffs[i]]
+        for k in (0, 1):
+            for box, s, c in left[k]:
+                if abs(s - conf_thresh) <= tol(s):
+                    counts["near_conf"] += 1
+                elif any(c2 == c and abs(s - s2) <= tol(max(s, s2))
+                         for _, s2, c2 in left[1 - k]):
+                    counts["swapped"] += 1
+                elif any(c2 == c and s2 > s and abs(_iou(box, b2)
+                                                     - nms_thresh) <= iou_tol
+                         for b2, s2, c2 in sides[k]):
+                    counts["nms_flip"] += 1
+                elif any(c2 == c and s2 >= s - tol(s) and _iou(box, b2)
+                         > nms_thresh - iou_tol
+                         for b2, s2, c2 in sides[1 - k]):
+                    counts["nms_chain"] += 1
+                elif any(c2 != c and s2 >= s - tol(s) and _iou(box, b2)
+                         > nms_thresh - iou_tol
+                         for b2, s2, c2 in sides[1 - k]):
+                    counts["class_nms"] += 1
+                elif any(abs(s - cut) <= tol(cut) for cut in cuts):
+                    counts["cut"] += 1
+                else:
+                    near = max(sides[1 - k], default=None,
+                               key=lambda d: _iou(box, d[0]))
+                    same = [(round(float(_iou(box, b2)), 4), round(s2, 6))
+                            for b2, s2, c2 in sides[0] + sides[1]
+                            if c2 == c and _iou(box, b2) > 0.3]
+                    unexplained.append(
+                        f"image {i}: a detection of class {c}, score "
+                        f"{s:.6g}, box {box}, on side {k} (0: the first) "
+                        f"has no counterpart on the other, whose nearest "
+                        f"is {near} (IoU "
+                        f"{_iou(box, near[0]) if near else 0:.4g}); "
+                        f"detections {len(sides[0])} / {len(sides[1])}, "
+                        f"cuts {[round(c_, 6) for c_ in cuts]}, (IoU, "
+                        f"score) of its class on both sides {same}")
+    if unexplained:
+        raise AssertionError(f"{len(unexplained)} detections unexplained "
+                             f"({counts}): " + "; ".join(unexplained[:6]))
+    return counts
+
+
+def kernel_vs_plain(fn, images_np):
+    """The bf16 forward on the kernel path and on the plain path: each head
+    output's share of bit-equal elements and max abs difference (printed,
+    and returned), and [B, 2] each image's pre_topk-th candidate score on
+    each path (a candidate near it is kept on one side only)."""
+    from yolo_nano_tpu_torch.models.yolo_nano import scores_from_features
+
+    x = torch.from_numpy(images_np).cuda().to(fn.dtype)
+    outs, cutoffs = [], []
+    for ctx in (contextlib.nullcontext(), plain_kernels()):
+        with ctx, torch.inference_mode():
+            heads = fn.model(x)
+            score = scores_from_features(*heads[:2])[0]
+            k = min(fn.cfg.nms_pre_topk, score.shape[1])
+            cutoffs.append(torch.topk(score, k, dim=1).values[:, -1].cpu(
+                ).numpy())
+            outs.append(heads)
+    heads = {}
+    for name, g, w in zip(("conf", "cls", "txtytwth"), *outs):
+        heads[name] = dict(bit_equal=float((g == w).float().mean()),
+                           max_abs_diff=(g.float() - w.float()).abs().max(
+                               ).item())
+    print("  head outputs, kernel path against plain path: " + "; ".join(
+        f"{n} {h['bit_equal']:.5f} bit-equal, max |diff| "
+        f"{h['max_abs_diff']:.3g}" for n, h in heads.items()))
+    return heads, np.stack(cutoffs, 1)
+
+
+def phase_main_path(images_np, npz=NPZ, phase="[3]"):
+    """load_predictor on a folded artifact (f32, or bf16 with its bf16
+    detection allowance) at both operating points."""
     from yolo_nano_tpu_torch.models.yolo_nano import (postprocess_scored,
                                                       scores_from_features)
     from yolo_nano_tpu_torch.serving import load_predictor
 
-    print(f"[3] main path: load_predictor({os.path.relpath(NPZ, ROOT)}), "
+    print(f"{phase} main path: load_predictor({os.path.relpath(npz, ROOT)}), "
           f"{BATCH} scenes at {SIZE}")
-    fns = {p: load_predictor(NPZ, **kw) for p, kw in OPERATING_POINTS.items()}
+    fns = {p: load_predictor(npz, **kw) for p, kw in OPERATING_POINTS.items()}
     for fn in fns.values():
         if fn.device.type != "cuda":
             raise AssertionError(f"predictor on {fn.device}, not CUDA")
         fn(images_np)  # warm-up
+    bf16 = fn.dtype == torch.bfloat16
 
     reset_counts()
     outs = {p: fn(images_np) for p, fn in fns.items()}
     counts = read_counts()
     print(f"  launch counts over {len(fns)} forwards: {counts}")
-    want = dict(fused_dw_pw=6 * len(fns), fused_stage_calls=3 * len(fns),
-                fused_stage=16 * len(fns))
+    want = want_counts(len(fns), bf16)
     if counts != want:
         raise AssertionError(f"launch counts {counts}, expected {want}")
 
@@ -569,7 +747,14 @@ def phase_main_path(images_np):
         with plain_kernels():
             plain = fn(images_np)
         got = outs[point]
-        check_detections(point, got, plain)
+        if bf16:
+            heads, cutoffs = kernel_vs_plain(fn, images_np)
+            agree = match_detections(got, plain, fn.cfg.conf_thresh,
+                                     fn.cfg.nms_thresh, **BF16_MATCH,
+                                     cutoffs=cutoffs)
+            agree["heads"] = heads
+        else:
+            agree = check_detections(point, got, plain)
         b, s, c, v = got
         if b.shape != (BATCH, fn.cfg.max_detections, 4) or not (
                 np.isfinite(b).all() and np.isfinite(s).all()):
@@ -578,12 +763,14 @@ def phase_main_path(images_np):
             raise AssertionError(f"{point}: boxes outside [0, 1]")
 
         model, cfg = fn.model, fn.cfg
-        x = torch.from_numpy(images_np).cuda()
+        x = torch.from_numpy(images_np).cuda().to(fn.dtype)
         with torch.inference_mode():
             conf, cls, txty = model(x)
             score, cidx = scores_from_features(conf, cls)
             cands = float((score >= cfg.conf_thresh).sum(1).float().mean())
             fwd_ms = time_ms(lambda: model(x), iters=10)
+            by_kernel = (forward_kernels(lambda: model(x))
+                         if point == "serving" else None)
             sc_ms = time_ms(lambda: scores_from_features(conf, cls), iters=10)
             pp_ms = time_ms(lambda: postprocess_scored(txty, score, cidx, cfg,
                                                        SIZE), iters=10)
@@ -604,13 +791,23 @@ def phase_main_path(images_np):
                             detections_per_img=float(v.sum(1).mean()),
                             batch_ms=step_ms, host_to_device_ms=h2d_ms,
                             forward_ms=fwd_ms, scores_ms=sc_ms,
-                            postprocess_ms=pp_ms)
+                            postprocess_ms=pp_ms,
+                            forward_kernels_ms=by_kernel,
+                            **({"matches": agree} if bf16
+                               else {"near_tie_slots": agree}),
+                            equal_slots=int(((got[3] == plain[3])
+                                             & (got[2] == plain[2])
+                                             & (got[1] == plain[1])).sum()))
         print(f"  {point}: {stats[point]['img_per_s']:.1f} img/s (numpy in, "
               f"numpy out), {cands:.2f} candidates/img, "
               f"{stats[point]['detections_per_img']:.2f} detections/img; per "
               f"batch {step_ms:.3f} ms: host→device copy {h2d_ms:.3f} ms, "
               f"forward {fwd_ms:.3f} ms, scores {sc_ms:.3f} ms, postprocess "
-              f"{pp_ms:.3f} ms; matches plain predict")
+              f"{pp_ms:.3f} ms; matches plain predict ("
+              + (f"matched { {k: v for k, v in agree.items() if k != 'heads'} }"
+                 if bf16 else f"{agree} near-tie slots")
+              + f"; {stats[point]['equal_slots']} of {v.size} slots "
+              "bit-equal)")
     if not stats["eval_strict"]["mean_candidates_per_img"] > 0:
         raise AssertionError("eval-strict: no candidates, NMS did no work")
     return counts, stats
@@ -726,6 +923,44 @@ def backward_ms(step, state, images, targets, iters=10) -> float:
             times.append((start, end))
     torch.cuda.synchronize()
     return sum(s.elapsed_time(e) for s, e in times) / iters
+
+
+def forward_kernels(fn, top: int = 10, iters: int = 3):
+    """Device time per call of the `top` CUDA kernels (by name) of fn,
+    from torch.profiler, printed and returned as {name: ms}, with the sum
+    over all its kernels and their number per call; None (the reason
+    printed) if the profiler records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+    except (RuntimeError, AttributeError) as e:
+        print(f"  forward by kernel: not measured ({e})")
+        return None
+    by_name = {}
+    for e in events:  # "void ns::kernel<T>(args...)" → "kernel<T>"
+        name = e.key.replace("void ", "").replace("(anonymous namespace)::",
+                                                  "")
+        name = name.split("(")[0][:72]
+        by_name[name] = (by_name.get(name, 0.0)
+                         + e.self_device_time_total / 1e3 / iters)
+    total = sum(by_name.values())
+    launched = sum(e.count for e in events) / iters
+    out = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:top])
+    print(f"  forward by kernel, device ms per forward (all {launched:g} "
+          f"kernels {total:.3f}): " + "; ".join(f"{k} {v:.3f}"
+                                                for k, v in out.items()))
+    return dict(out, all_kernels=total, kernels_per_call=launched)
 
 
 def device_busy_ms(fn, iters: int = 3):
@@ -846,7 +1081,7 @@ def phase_training():
         with plain_kernels():
             plain = predict(folded, images, cfg, SIZE)
             plain_features = folded(images)
-    want = dict(fused_dw_pw=6, fused_stage_calls=3, fused_stage=16)
+    want = want_counts(1, bf16=False)
     if counts != want:
         raise AssertionError(f"fold→predict launch counts {counts}, expected "
                              f"{want}")
@@ -923,13 +1158,157 @@ def phase_training():
     return counts, stats_out
 
 
-def kernel_row(name, rows, per_fwd, launches, replaces):
+def bf16_ulps(got, want) -> tuple:
+    """|got − want| in bf16 ulps: (the largest in ulps of max|want|, the
+    largest in ulps of each element's own max(|want|, 2^-8·max|want|))."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs()
+    top = want.abs().max().item()
+    mag = torch.clamp(want.abs(), min=2.0 ** -8 * top)
+    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - 7)
+    top_ulp = 2.0 ** (np.floor(np.log2(max(top, 1e-30))) - 7)
+    return err.max().item() / top_ulp, (err / ulp).max().item()
+
+
+def check_blocks_bf16(tag, x, blocks):
+    """Each block's bf16 kernel against the plain block on the same input,
+    the plain chain's: within BF16_BLOCK_ULPS of the block's max|ref| and
+    BF16_BLOCK_EQUAL bit-equal. → (the plain stage output, max ulps of
+    max|ref|, max abs error, share of bit-equal elements)."""
+    from yolo_nano_tpu_torch.ops.kernels.fused_stage import (_launch_block,
+                                                             _lib, block_plain)
+
+    worst = own = err = 0.0
+    equal = total = 0
+    least = 1.0
+    for i, w in enumerate(blocks):
+        want = block_plain(x, w)
+        got = _launch_block(_lib(), x, w)
+        ulps, own_ulps = bf16_ulps(got, want)
+        same = int((got == want).sum())
+        worst, own = max(worst, ulps), max(own, own_ulps)
+        least = min(least, same / want.numel())
+        err = max(err, (got.float() - want.float()).abs().max().item())
+        equal += same
+        total += want.numel()
+        if ulps > BF16_BLOCK_ULPS or same < BF16_BLOCK_EQUAL * want.numel():
+            raise AssertionError(
+                f"{tag} block {i}: bf16 kernel {ulps:g} ulps of max|ref| "
+                f"from its plain block (tolerance {BF16_BLOCK_ULPS}), "
+                f"{same / want.numel():.5f} bit-equal (at least "
+                f"{BF16_BLOCK_EQUAL})")
+        x = want
+    print(f"  {tag}: blocks within {worst:.3g} bf16 ulps of max|ref| of the "
+          f"plain blocks (tolerance {BF16_BLOCK_ULPS}; {own:.3g} ulps of the "
+          f"element's own magnitude at most), max abs err {err:.3g}, "
+          f"{equal / total:.5f} of the elements bit-equal (the least of a "
+          f"block {least:.5f})")
+    return x, worst, err, equal / total
+
+
+def stem_bf16(model, images_np):
+    """The stage-2 input of a bf16 model for the rendered scenes."""
+    from yolo_nano_tpu_torch.ops.nn import max_pool_3x3_s2
+
+    x = torch.from_numpy(images_np).cuda().to(torch.bfloat16)
+    x = max_pool_3x3_s2(model.backbone.conv1(x.permute(0, 3, 1, 2)))
+    return x.contiguous(memory_format=torch.channels_last)
+
+
+def phase_fused_stage_bf16(model, images_np):
+    """Stages 2/3/4 of the bf16 0.5x artifact on the main path's own bf16
+    activations: each block against its plain block in ulps; the whole
+    stage's kernel, plain and bound ms."""
+    from yolo_nano_tpu_torch.ops.kernels.fused_stage import (
+        fused_stage, fused_stage_plain, prepare_stage)
+
+    print(f"[5] bf16 fused_stage vs plain, block by block, batch {BATCH}")
+    bb = model.backbone
+    rows = []
+    with torch.inference_mode():
+        x = stem_bf16(model, images_np)
+        for name in ("stage2", "stage3", "stage4"):
+            blocks = prepare_stage(getattr(bb, name))
+            tag = f"{name} {tuple(x.shape)} bf16"
+            want, ulps, err, equal = check_blocks_bf16(tag, x, blocks)
+            whole = fused_stage(x, blocks)
+            stage_equal = float((whole == fused_stage_plain(x, blocks)
+                                 ).float().mean())
+            flops, wbytes = _stage_cost(x, blocks)
+            b_ms, b_by = bound(nbytes(x, want) + wbytes, flops,
+                               torch.bfloat16)
+            xx = x
+            row = dict(shape=tag, max_abs_err=err, max_ulps=ulps,
+                       bit_equal_share=equal,
+                       stage_bit_equal_share=stage_equal,
+                       ms=time_ms(lambda: fused_stage(xx, blocks),
+                                  queued=True),
+                       plain_ms=time_ms(lambda: fused_stage_plain(xx, blocks),
+                                        queued=True),
+                       library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                       launches_per_call=len(blocks))
+            print(f"    kernel {row['ms']:.4f} ms ({len(blocks)} launches), "
+                  f"plain {row['plain_ms']:.4f} ms, bound "
+                  f"{b_ms * 1e3:.2f} us ({b_by}); the whole stage "
+                  f"{stage_equal:.5f} bit-equal to the plain stage")
+            rows.append(row)
+            x = want
+    total = sum(r["ms"] for r in rows)
+    print(f"  bf16 fused_stage per forward: {total:.4f} ms in 16 launches, "
+          f"bound {sum(r['bound_ms'] for r in rows):.4f} ms")
+    return rows
+
+
+def phase_make_predict_fn_bf16(images_np):
+    """The 1.0x artifact's folded f32 tree through make_predict_fn at its
+    defaults (fold, bf16): the bf16 stage kernel at c2 = 58, 116, 232."""
+    from yolo_nano_tpu_torch.cli.common import make_predict_fn
+    from yolo_nano_tpu_torch.config import config_from_json
+    from yolo_nano_tpu_torch.convert import load_npz
+    from yolo_nano_tpu_torch.ops.kernels.fused_stage import prepare_stage
+
+    tree, meta = load_npz(NPZ)
+    cfg = config_from_json(meta)
+    print(f"[5] make_predict_fn({os.path.relpath(NPZ, ROOT)} tree, "
+          f"{cfg.backbone}) at its bf16 default, {BATCH} scenes, conf "
+          f"{cfg.conf_thresh}")
+    fn = make_predict_fn(tree, None, cfg, SIZE)
+    if fn.device.type != "cuda" or fn.dtype != torch.bfloat16:
+        raise AssertionError(f"make_predict_fn on {fn.device} {fn.dtype}")
+    fn(images_np)  # warm-up
+    reset_counts()
+    got = fn(images_np)
+    counts = read_counts()
+    if counts != want_counts(1, bf16=True):
+        raise AssertionError(f"make_predict_fn launch counts {counts}")
+    with plain_kernels():
+        plain = fn(images_np)
+    heads, cutoffs = kernel_vs_plain(fn, images_np)
+    matches = match_detections(got, plain, cfg.conf_thresh, cfg.nms_thresh,
+                               **BF16_MATCH, cutoffs=cutoffs)
+    matches["heads"] = heads
+    with torch.inference_mode():
+        x = stem_bf16(fn.model, images_np)
+        for name in ("stage2", "stage3", "stage4"):
+            blocks = prepare_stage(getattr(fn.model.backbone, name))
+            x = check_blocks_bf16(f"1.0x {name} {tuple(x.shape)} bf16", x,
+                                  blocks)[0]
+        xb = torch.from_numpy(images_np).cuda().to(torch.bfloat16)
+        fwd_ms = time_ms(lambda: fn.model(xb), iters=10)
+    shown = {k: v for k, v in matches.items() if k != "heads"}
+    print(f"  launches {counts}; {int(got[3].sum())} detections match the "
+          f"plain-version predict's: {shown}; forward {fwd_ms:.3f} ms")
+    return dict(counts=counts, forward_ms=fwd_ms, matches=matches,
+                detections=int(got[3].sum()))
+
+
+def kernel_row(name, source, rows, per_fwd, launches, replaces):
     """One JSON row per kernel: its main-path calls of one forward summed
     (the two head pairs of a level share a shape, so one is timed twice)."""
     total = lambda key: sum(r[key] * per_fwd for r in rows)  # noqa: E731
     library = [r["library_ms"] for r in rows]
     return dict(
-        name=name, route="cuda", source=f"yolo_nano_tpu_torch/csrc/{name}.cu",
+        name=name, route="cuda", source=f"yolo_nano_tpu_torch/csrc/{source}",
         replaces=replaces, launches=launches,
         max_abs_err=max(r["max_abs_err"] for r in rows),
         ms=total("ms"), plain_ms=total("plain_ms"), bound_ms=total("bound_ms"),
@@ -966,20 +1345,45 @@ def main():
     stage_rows = phase_fused_stage(model, torch.from_numpy(images_np).cuda())
     counts, stats = phase_main_path(images_np)
     train_counts, train_stats = phase_training()
+    from yolo_nano_tpu_torch.convert import load_model
+
+    model05 = load_model(NPZ_05X)[0].cuda()
+    with torch.inference_mode():
+        dw_rows05 = phase_fused_dw_pw(model05, dtypes=(torch.bfloat16,),
+                                      acts=(("leaky", "leaky"),), phase="[5]")
+    stage_rows05 = phase_fused_stage_bf16(model05, images_np)
+    counts05, stats05 = phase_main_path(images_np, NPZ_05X, phase="[5]")
+    stats1x_bf16 = phase_make_predict_fn_bf16(images_np)
     print(json.dumps({"main_path": stats, "batch": BATCH, "size": SIZE,
                       "training": train_stats,
                       "fused_dw_pw_per_shape": dw_rows,
-                      "fused_stage_per_stage": stage_rows}))
+                      "fused_stage_per_stage": stage_rows,
+                      "main_path_bf16_05x": stats05,
+                      "fused_dw_pw_bf16_05x_per_shape": dw_rows05,
+                      "fused_stage_bf16_05x_per_stage": stage_rows05,
+                      "make_predict_fn_bf16_1x": stats1x_bf16}))
     # the main path runs the heads in f32 with leaky/leaky
     main_dw = [r for r in dw_rows if r["dtype"] == "float32"
                and r["acts"] == "leaky/leaky"]
+    dw_pw_src, dw_pw_tpu = ("fused_dw_pw.cu",
+                            "yolo_nano_tpu/ops/pallas/fused_conv.py:108")
+    stage_src, stage_tpu = ("fused_stage.cu",
+                            "yolo_nano_tpu/ops/pallas/fused_stage.py:223")
     kernels = [
-        kernel_row("fused_dw_pw", main_dw, 2, counts["fused_dw_pw"],
-                   "yolo_nano_tpu/ops/pallas/fused_conv.py:108"),
-        kernel_row("fused_stage", stage_rows, 1, counts["fused_stage"],
-                   "yolo_nano_tpu/ops/pallas/fused_stage.py:223")]
-    for row in kernels:  # the training path's fold→predict, counted alone
+        kernel_row("fused_dw_pw", dw_pw_src, main_dw, 2,
+                   counts["fused_dw_pw"], dw_pw_tpu),
+        kernel_row("fused_stage", stage_src, stage_rows, 1,
+                   counts["fused_stage"], stage_tpu),
+        # the bf16 launches of the 0.5x artifact's main path (phase 5)
+        kernel_row("fused_dw_pw_bf16", dw_pw_src, dw_rows05, 2,
+                   counts05["fused_dw_pw_bf16"], dw_pw_tpu),
+        kernel_row("fused_stage_bf16", stage_src, stage_rows05, 1,
+                   counts05["fused_stage_bf16"], stage_tpu)]
+    for row in kernels[:2]:  # the training path's fold→predict, alone
         row["launches_train_fold_predict"] = train_counts[row["name"]]
+    for row in kernels[2:]:  # make_predict_fn on the 1.0x tree, alone
+        row["launches_make_predict_fn_1x"] = stats1x_bf16["counts"][
+            row["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

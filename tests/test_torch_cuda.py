@@ -7,8 +7,9 @@ Shapes include ragged tiles (sizes not a multiple of the tile), widths not
 a multiple of 8, more tiles than SMs (so fused_dw_pw's persistent blocks
 walk several tiles each) and odd inputs to stride-2 blocks. Tolerances: f32
 1e-4·max|ref| + 1e-5 (the tensor-core products sum in another order than
-cuDNN); bf16 rtol 2e-2, atol 2e-2; against f64, at most 4x the error of
-cuDNN in f32.
+cuDNN); bf16 fused_dw_pw rtol 2e-2, atol 2e-2; the bf16 stage kernel block
+by block in bf16 ulps (BF16_BLOCK_ULPS) and mostly bit-equal; against f64,
+at most 4x the error of cuDNN in f32.
 """
 
 import numpy as np
@@ -16,6 +17,9 @@ import pytest
 import torch
 
 pytestmark = pytest.mark.cuda
+# the bf16 stage kernel against its plain version, block by block: bf16
+# ulps of the block output's max|ref| (as chip_smoke.py holds it)
+BF16_BLOCK_ULPS = 1
 
 
 @pytest.fixture
@@ -276,6 +280,107 @@ def test_fused_stage_takes_an_unaligned_input(dev, cin, cout):
         got = run(x)
         torch.cuda.synchronize()
         _close_f32(got, plain(x))
+
+
+def _bf16_ulps(got, want):
+    """max |got − want| in bf16 ulps of max|want|."""
+    top = want.float().abs().max().item()
+    return ((got.float() - want.float()).abs().max().item()
+            / 2.0 ** (np.floor(np.log2(max(top, 1e-30))) - 7))
+
+
+@pytest.mark.parametrize("bf16_weights", [True, False])
+@pytest.mark.parametrize("cin,cout,n,hw", [
+    (24, 48, 4, (104, 104)),    # 0.5x stage2 widths, main-path size
+    (48, 96, 8, (52, 52)),      # 0.5x stage3 widths and depth
+    (96, 192, 4, (26, 26)),     # 0.5x stage4
+    (24, 116, 4, (104, 104)),   # 1.0x stage2: c2 = 58, no 16-byte paths
+    (116, 232, 8, (52, 52)),    # 1.0x stage3
+    (232, 464, 4, (26, 26)),    # 1.0x stage4, c2 = 232
+    (24, 48, 2, (9, 14)),       # ragged tiles, odd input to stride 2
+])
+def test_fused_stage_bf16_kernel_matches_plain(dev, cin, cout, n, hw,
+                                               bf16_weights):
+    """The bf16 kernel, block by block on the plain chain's bf16 inputs:
+    within BF16_BLOCK_ULPS ulps of max|ref| of the plain block and 99% of
+    the elements bit-equal (the two sum each op in another f32 order, which
+    can flip a bf16 rounding by one ulp). The weights are bf16 values (a
+    cast stage, as on the main path) or f32 ones, whose pointwise weights
+    both round to bf16. The wrapper and the module path launch the bf16
+    kernel."""
+    from yolo_nano_tpu_torch.ops.kernels.fused_stage import (
+        _launch_block, _lib, block_plain, fused_stage, prepare_stage)
+    from yolo_nano_tpu_torch.utils.fuse_bn import cast_f32_to_bf16
+
+    g = torch.Generator().manual_seed(2)
+    stage = _random_stage(g, cin, cout, n)
+    if bf16_weights:
+        stage = cast_f32_to_bf16(stage)
+    stage = stage.to(dev)
+    blocks = prepare_stage(stage)
+    x = torch.relu(_randn(g, 2, hw[0], hw[1], cin)).permute(0, 3, 1, 2).to(
+        dev, torch.bfloat16)
+    launches = fused_stage.launches_bf16
+    got = fused_stage(x, blocks)
+    assert fused_stage.launches_bf16 == launches + n
+    assert got.dtype == torch.bfloat16
+    assert got.shape == (2, cout, (hw[0] + 1) // 2, (hw[1] + 1) // 2)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(stage(x), got)
+    lib = _lib()
+    for w in blocks:
+        want = block_plain(x, w)
+        out = _launch_block(lib, x, w)
+        torch.cuda.synchronize()
+        ulps = _bf16_ulps(out, want)
+        equal = (out == want).float().mean().item()
+        assert ulps <= BF16_BLOCK_ULPS and equal >= 0.99, (ulps, equal)
+        x = want
+
+
+@pytest.mark.parametrize("cin,cout", [(48, 96), (116, 232), (96, 96)])
+def test_fused_stage_bf16_takes_an_unaligned_input(dev, cin, cout):
+    """bf16 x at a storage offset of one element (2 bytes): the stride-2
+    block (a whole stage) and a stride-1 block on their own read it by
+    single loads and store in pairs."""
+    from yolo_nano_tpu_torch.ops.kernels.fused_stage import (
+        _launch_block, _lib, block_plain, fused_stage, fused_stage_plain,
+        prepare_stage)
+
+    g = torch.Generator().manual_seed(4)
+    blocks = prepare_stage(_random_stage(g, cin, cout, 2).to(dev))
+    for x_cin, run, plain in ((cin, lambda x: fused_stage(x, blocks),
+                               lambda x: fused_stage_plain(x, blocks)),
+                              (cout, lambda x: _launch_block(_lib(), x,
+                                                             blocks[1]),
+                               lambda x: block_plain(x, blocks[1]))):
+        want_in = torch.relu(_randn(g, 2, 13, 11, x_cin)).to(
+            dev, torch.bfloat16)
+        buf = torch.zeros(want_in.numel() + 1, device=dev,
+                          dtype=torch.bfloat16)
+        x = buf[1:].view(want_in.shape).permute(0, 3, 1, 2)
+        x.copy_(want_in.permute(0, 3, 1, 2))
+        assert x.is_contiguous(memory_format=torch.channels_last)
+        assert x.data_ptr() % 4
+        got = run(x)
+        torch.cuda.synchronize()
+        want = plain(x)
+        ulps = _bf16_ulps(got, want)
+        assert ulps <= 2 * BF16_BLOCK_ULPS, ulps
+
+
+def test_block_tiles_at_half_width(dev):
+    """The tile rule at the 0.5x stages (c2 = 24, 48, 96; the bf16 main
+    path, whose layout is the f32 kernel's), batch 32, 416 px: a side that
+    fits at each launch."""
+    from yolo_nano_tpu_torch.ops.kernels.fused_stage import _lib, block_tile
+
+    smem = _lib().shuffle_block_smem_bytes
+    want = {(2, 24, 24, 52): 13, (1, 48, 24, 52): 13, (2, 48, 48, 26): 13,
+            (1, 96, 48, 26): 13, (2, 96, 96, 13): 7, (1, 192, 96, 13): 7}
+    for (stride, cin, c2, side), tile in want.items():
+        assert block_tile(stride, cin, c2, 32, side, side) == tile
+        assert smem(tile, stride, cin, c2) <= 227 * 1024
 
 
 def test_block_tiles_at_main_path_widths(dev):

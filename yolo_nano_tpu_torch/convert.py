@@ -8,7 +8,12 @@ transpose.
 
 On disk the port reads a plain `.npz`: keys are '/'-joined tree paths
 (`backbone/stage2/0/branch1/dw/w`), list positions as integers, plus the
-artifact's `config.json` content under the key `config.json`.
+artifact's `config.json` content under the key `config.json`. numpy has no
+bfloat16, so a bf16 leaf is stored as its uint16 bit pattern under its path
+with the key suffix `.bf16` (`backbone/conv1/w.bf16`); `load_npz` gives it
+back as a `torch.bfloat16` tensor, bit for bit. Every other leaf is a numpy
+array. bf16 leaves may come to `save_npz` as `torch.bfloat16` tensors or as
+numpy arrays of a bfloat16 dtype (as JAX's `np.asarray` gives them).
 
 Training state goes both ways: `named_from_tree` / `tree_from_named` map a
 tree of parameters (or of anything shaped like them: the momentum, the EMA)
@@ -33,16 +38,21 @@ from yolo_nano_tpu_torch.models.yolo_nano import Head, YoloNano
 from yolo_nano_tpu_torch.ops.nn import ConvUnit
 
 CONFIG_KEY = "config.json"
+BF16_SUFFIX = ".bf16"
 
 
 def _t(a) -> torch.Tensor:
+    """A leaf as a tensor: a torch tensor (a bf16 leaf) keeps its dtype, a
+    numpy leaf becomes f32."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().clone()
     return torch.from_numpy(np.array(a, np.float32))
 
 
 def conv_unit(p: dict, s: Optional[dict] = None, *, stride: int = 1,
               act: Optional[str] = None) -> ConvUnit:
     """One conv unit from its JAX dict (and BN stats, when unfolded)."""
-    w = np.asarray(p["w"])
+    w = _t(p["w"])
     # depthwise units are the ones with one input channel per group
     groups = w.shape[3] if w.shape[2] == 1 else 1
     bn = None
@@ -50,8 +60,9 @@ def conv_unit(p: dict, s: Optional[dict] = None, *, stride: int = 1,
         bn = (_t(p["scale"]), _t(p["bias"]), _t(s["mean"]), _t(s["var"]))
     bias = _t(p["b"]) if "b" in p else None
     # built for inference (eval-mode BN, frozen); init_yolo_nano trains it
-    return ConvUnit(_t(w.transpose(3, 2, 0, 1)), bias, bn, stride=stride,
-                    groups=groups, act=act).requires_grad_(False).eval()
+    return ConvUnit(w.permute(3, 2, 0, 1).contiguous(), bias, bn,
+                    stride=stride, groups=groups,
+                    act=act).requires_grad_(False).eval()
 
 
 def _sub(stats, key):
@@ -111,11 +122,14 @@ def build_yolo_nano(params: dict, stats: Optional[dict],
 # ---------------------------------------------------------------------------
 
 def flatten_tree(tree, prefix: str = "") -> dict:
-    """Nested dicts/lists of arrays → {'a/0/b': array}."""
+    """Nested dicts/lists of arrays → {'a/0/b': array}; torch tensors stay
+    tensors."""
     if isinstance(tree, dict):
         items = tree.items()
     elif isinstance(tree, (list, tuple)):
         items = enumerate(tree)
+    elif isinstance(tree, torch.Tensor):
+        return {prefix: tree}
     else:
         return {prefix: np.asarray(tree)}
     out = {}
@@ -144,17 +158,45 @@ def unflatten_tree(flat: dict):
     return _listify(root)
 
 
+def _is_bf16(a) -> bool:
+    if isinstance(a, torch.Tensor):
+        return a.dtype == torch.bfloat16
+    return a.dtype.name == "bfloat16"
+
+
+def _bf16_bits(a) -> np.ndarray:
+    """A bf16 leaf → its uint16 bit patterns."""
+    if isinstance(a, torch.Tensor):
+        a = a.detach().cpu().contiguous().view(torch.int16).numpy()
+    return np.ascontiguousarray(a).view(np.uint16)
+
+
 def save_npz(path: str, tree, meta: dict) -> None:
-    """Write a parameter tree and its artifact config as a plain .npz."""
-    flat = flatten_tree(tree)
+    """Write a parameter tree and its artifact config as a plain .npz; bf16
+    leaves as uint16 bit patterns under `<path>.bf16`."""
+    flat = {}
+    for key, a in flatten_tree(tree).items():
+        if _is_bf16(a):
+            flat[key + BF16_SUFFIX] = _bf16_bits(a)
+        else:
+            flat[key] = a.detach().cpu().numpy() if isinstance(
+                a, torch.Tensor) else a
     flat[CONFIG_KEY] = np.array(json.dumps(meta, sort_keys=True))
     np.savez(path, **flat)
 
 
 def load_npz(path: str) -> Tuple[dict, dict]:
-    """→ (parameter tree of numpy arrays, config.json content)."""
+    """→ (parameter tree, config.json content): numpy arrays, and
+    `torch.bfloat16` tensors for the bf16 leaves."""
+    flat = {}
     with np.load(path, allow_pickle=False) as z:
-        flat = {k: z[k] for k in z.files}
+        for k in z.files:
+            if k.endswith(BF16_SUFFIX):
+                bits = z[k].astype(np.uint16, copy=False).view(np.int16)
+                flat[k[:-len(BF16_SUFFIX)]] = torch.from_numpy(
+                    bits.copy()).view(torch.bfloat16)
+            else:
+                flat[k] = z[k]
     meta = json.loads(str(flat.pop(CONFIG_KEY)))
     return unflatten_tree(flat), meta
 

@@ -20,7 +20,9 @@
 // a_lo*b_hi + a_hi*b_lo + a_hi*b_hi. The dropped a_lo*b_lo term is below
 // 2^-22 of |a*b|; a single TF32 pass keeps about 3 decimal digits. Operands
 // already exact in TF32 (bf16 values: 7 mantissa bits) take PASSES = 1, the
-// a_hi*b_hi pass alone, which is then exact. The three
+// a_hi*b_hi pass alone, which is then exact: a bf16 product, for which A
+// holds bf16 values and W's f32 values are rounded to bf16 (to nearest even),
+// as a bf16 product rounds its weights (a no-op on bf16 weights). The three
 // passes of a k-step accumulate on the tensor core into a fresh zero, and
 // that sum is added to the running f32 sum on the CUDA cores: the tensor
 // core rounds its sum toward zero at the scale of its largest addend, so
@@ -40,6 +42,7 @@
 
 #include <cstdint>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace ynt {
@@ -85,6 +88,11 @@ __host__ __device__ inline int warps_n(int n) {
 // slower in the stage kernel on an H100).
 __device__ __forceinline__ uint32_t to_tf32(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x rounded to bf16 (to nearest even, as __float2bfloat16), as f32 bits.
+__device__ __forceinline__ uint32_t to_bf16(float x) {
+  return __float_as_uint(__bfloat162float(__float2bfloat16(x)));
 }
 
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
@@ -249,7 +257,7 @@ __device__ __forceinline__ void gemm(int M, int K, int N,
                 if (PASSES == 3)
                   split(b_raw[j][e], b_hi[j][e], b_lo[j][e]);
                 else
-                  b_hi[j][e] = to_tf32(b_raw[j][e]);
+                  b_hi[j][e] = to_bf16(b_raw[j][e]);
               }
             if (ks + 1 < ksteps) load(ks + 1);
             // small terms first, into a fresh zero; then one f32 add

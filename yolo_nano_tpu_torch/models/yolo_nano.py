@@ -1,9 +1,11 @@
 """YOLO-Nano detector: ShuffleNetV2 backbone + FPN/PAN neck + 3-level head.
 
-Public functions keep the JAX package's layouts: images [B,S,S,3] NHWC f32;
-`predict` returns (boxes [B,D,4] normalized x1y1x2y2, scores [B,D],
-classes [B,D] int32, valid [B,D] bool). Inside, tensors are NCHW in
-channels_last memory.
+Public functions keep the JAX package's layouts: images [B,S,S,3] NHWC in
+the model's dtype (f32, or bf16 for a model cast by
+`utils.fuse_bn.cast_f32_to_bf16`); `predict` returns (boxes [B,D,4]
+normalized x1y1x2y2, scores [B,D], classes [B,D] int32, valid [B,D] bool),
+scored and decoded in f32 whatever the model's dtype. Inside, tensors are
+NCHW in channels_last memory.
 
 Head channel layout: per level the A·(1+C+4) output channels are
 [conf ×A | (classes ×C) anchor-major | txtytwth ×4 anchor-major]; levels are
@@ -56,11 +58,14 @@ class Head(nn.Module):
         return super()._apply(fn, *args, **kwargs)
 
     def _pairs(self):
-        """Kernel layouts: dw [3,3,C], dw_b, pw [C,Cout], pw_b."""
+        """Kernel layouts: dw [3,3,C], dw_b, pw [C,Cout], pw_b; dw_w, dw_b
+        and pw_b in f32 (bf16 ones widened, which is exact), pw_w in the
+        weights' dtype."""
         if self._kernel_weights is None:
             self._kernel_weights = [
-                (dw.weight[:, 0].permute(1, 2, 0).contiguous(), dw.bias,
-                 pw.weight[:, :, 0, 0].t().contiguous(), pw.bias)
+                (dw.weight[:, 0].permute(1, 2, 0).float().contiguous(),
+                 dw.bias.float(), pw.weight[:, :, 0, 0].t().contiguous(),
+                 pw.bias.float())
                 for dw, pw in ((self.dw0, self.pw0), (self.dw1, self.pw1))]
         return self._kernel_weights
 

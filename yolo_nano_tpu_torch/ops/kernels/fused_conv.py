@@ -127,6 +127,8 @@ def _launch(x, dw_w, dw_b, pw_w, pw_b, act_mid, act_out, tile=None):
              pw_b.data_ptr(), out.data_ptr(), b, h, w, c, cout,
              ACT_CODES[act_mid], ACT_CODES[act_out], *tile, stream)
     fused_dw_pw.launches += 1
+    if x.dtype == torch.bfloat16:
+        fused_dw_pw.launches_bf16 += 1
     check(err, "fused_dw_pw")
     return out
 
@@ -137,7 +139,8 @@ def fused_dw_pw(x, dw_w, dw_b, pw_w, pw_b, *,
     """x [B,C,H,W] channels_last → [B,Cout,H,W] channels_last, x's dtype.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    (and counts the launch in `fused_dw_pw.launches`) or raises."""
+    of its dtype (and counts the launch in `fused_dw_pw.launches`, a bf16
+    one also in `fused_dw_pw.launches_bf16`) or raises."""
     _check(x, dw_w, dw_b, pw_w, pw_b)
     if x.device.type == "cpu":
         return fused_dw_pw_plain(x, dw_w, dw_b, pw_w, pw_b, act_mid=act_mid,
@@ -153,3 +156,4 @@ def fused_dw_pw(x, dw_w, dw_b, pw_w, pw_b, *,
 
 
 fused_dw_pw.launches = 0
+fused_dw_pw.launches_bf16 = 0

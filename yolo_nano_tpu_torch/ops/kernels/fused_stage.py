@@ -1,18 +1,26 @@
 """One ShuffleNetV2 stage on folded weights: the CUDA kernel
 `csrc/fused_stage.cu` (one launch per block) and its plain PyTorch version.
 
-Same function as the JAX package's Pallas `fused_stage`: a stride-2 block
-(two downsampling branches, concat, shuffle g=2), then n stride-1 blocks
-(channel split, right half through pw+ReLU → dw3×3 → pw+ReLU, concat,
-shuffle). Concat + shuffle is the interleave out[2j] = left[j],
-out[2j+1] = right[j].
+Same function as the JAX package's Pallas `fused_stage`
+(`ops/pallas/fused_stage.py`): a stride-2 block (two downsampling branches,
+concat, shuffle g=2), then n stride-1 blocks (channel split, right half
+through pw+ReLU → dw3×3 → pw+ReLU, concat, shuffle). Concat + shuffle is
+the interleave out[2j] = left[j], out[2j+1] = right[j].
+
+x is f32 or bf16, and the output is in x's dtype. In bf16 every op rounds
+where the Pallas kernel rounds (`_mm`, `_dw3x3`), and nowhere else: a
+pointwise multiplies bf16 operands (the weights rounded to bf16) with f32
+products and sums, adds the f32 bias, applies ReLU and rounds to bf16; a
+depthwise sums its f32 taps on the bf16 inputs from the f32 bias and rounds
+to bf16. Concat and shuffle are exact.
 
 `prepare_stage` only reshapes a folded stage's weights into the kernel's
 layouts: pointwise [Cin, Cout], depthwise [9, C] (tap-major), biases [C],
-all f32 and contiguous. The kernel takes each pointwise weight zero-padded
-to multiples of 8 rows and columns (`*_pad`, the m16n8k8 products' K and N);
-the plain version takes the weights as they are. x is [B, C, H, W] f32 in
-channels_last memory.
+all f32 and contiguous (bf16 weights widen to f32 exactly, as the Pallas
+kernel's `_pw`/`_dw` widen them). The kernel takes each pointwise weight
+zero-padded to multiples of 8 rows and columns (`*_pad`, the m16n8k8
+products' K and N); the plain version takes the weights as they are. x is
+[B, C, H, W] in channels_last memory.
 """
 
 from __future__ import annotations
@@ -27,9 +35,11 @@ import torch.nn.functional as F
 from yolo_nano_tpu_torch.ops.kernels.build import check, load
 from yolo_nano_tpu_torch.ops.nn import channel_shuffle
 
-# the kernel's weight arguments, in the order of shuffle_block_f32
+# the kernel's weight arguments, in the order of shuffle_block_{f32,bf16}
 _WEIGHTS = ("pw1_w_pad", "pw1_b", "dw_w", "dw_b", "pw2_w_pad", "pw2_b",
             "b1dw_w", "b1dw_b", "b1pw_w_pad", "b1pw_b")
+_SYMBOLS = {torch.float32: "shuffle_block_f32",
+            torch.bfloat16: "shuffle_block_bf16"}
 C2_MAX = 512  # the gemm's 16 warps cover at most 64 n8 tiles
 
 
@@ -83,29 +93,36 @@ def prepare_stage(blocks) -> List[Dict[str, torch.Tensor]]:
     return out
 
 
-def _pw_plain(x, w, b, relu=True):
-    y = F.conv2d(x, w.t()[:, :, None, None], b)
-    return torch.relu(y) if relu else y
+def _pw_plain(x, w, b, dt):
+    """relu(x @ w + b), the operands rounded to dt and summed in f32 (or
+    wider), the output rounded to dt."""
+    w = w.to(dt).to(x.dtype)
+    return torch.relu(F.conv2d(x, w.t()[:, :, None, None], b)).to(dt)
 
 
-def _dw_plain(x, w, b, stride):
+def _dw_plain(x, w, b, stride, dt):
     c = w.shape[1]
-    return F.conv2d(x, w.t().reshape(c, 1, 3, 3), b, stride=stride,
-                    padding=1, groups=c)
+    return F.conv2d(x, w.t().reshape(c, 1, 3, 3).to(x.dtype), b,
+                    stride=stride, padding=1, groups=c).to(dt)
 
 
 def block_plain(x: torch.Tensor, w: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """One ShuffleV2 block from kernel-layout weights, in plain PyTorch."""
+    """One ShuffleV2 block from kernel-layout weights, in plain PyTorch: the
+    output in x's dtype, each op computed in f32 (f64 for f64 x) on inputs
+    rounded to x's dtype."""
+    dt = x.dtype
+    wide = torch.promote_types(dt, torch.float32)
+    xw = x.to(wide)
     if w["stride"] == 2:
-        even = _pw_plain(_dw_plain(x, w["b1dw_w"], w["b1dw_b"], 2),
-                         w["b1pw_w"], w["b1pw_b"])
-        right = x
+        even = _pw_plain(_dw_plain(xw, w["b1dw_w"], w["b1dw_b"], 2,
+                                   dt).to(wide), w["b1pw_w"], w["b1pw_b"], dt)
+        right = xw
     else:
         c2 = x.shape[1] // 2
-        even, right = x[:, :c2], x[:, c2:]
-    t = _pw_plain(right, w["pw1_w"], w["pw1_b"])
-    t = _dw_plain(t, w["dw_w"], w["dw_b"], w["stride"])
-    odd = _pw_plain(t, w["pw2_w"], w["pw2_b"])
+        even, right = x[:, :c2], xw[:, c2:]
+    t = _pw_plain(right, w["pw1_w"], w["pw1_b"], dt).to(wide)
+    t = _dw_plain(t, w["dw_w"], w["dw_b"], w["stride"], dt).to(wide)
+    odd = _pw_plain(t, w["pw2_w"], w["pw2_b"], dt)
     return channel_shuffle(torch.cat([even, odd], 1), 2)
 
 
@@ -118,14 +135,16 @@ def fused_stage_plain(x: torch.Tensor, blocks) -> torch.Tensor:
 
 @functools.lru_cache(maxsize=None)
 def _lib():
-    """The built kernel: shuffle_block_f32 launches one block;
-    shuffle_block_tile and shuffle_block_smem_bytes are its tile rule and
-    shared-memory layout, computed on the host."""
+    """The built kernel: shuffle_block_{f32,bf16} launch one block in x's
+    dtype; shuffle_block_tile and shuffle_block_smem_bytes are its tile
+    rule and shared-memory layout (the same in both dtypes), computed on
+    the host."""
     lib = load("fused_stage")
-    lib.shuffle_block_f32.argtypes = ([ctypes.c_void_p] * 2
-                                      + [ctypes.c_int] * 7
-                                      + [ctypes.c_void_p] * 11)
-    lib.shuffle_block_f32.restype = ctypes.c_int
+    for sym in _SYMBOLS.values():
+        fn = getattr(lib, sym)
+        fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
+                       + [ctypes.c_void_p] * 11)
+        fn.restype = ctypes.c_int
     lib.shuffle_block_tile.argtypes = [ctypes.c_int] * 6
     lib.shuffle_block_tile.restype = ctypes.c_int
     lib.shuffle_block_smem_bytes.argtypes = [ctypes.c_int] * 4
@@ -164,7 +183,7 @@ def _launch_block(lib, x, w, tile=None):
     if tile is None:
         tile = block_tile(s, cin, c2, b, ho, wo)
     out = torch.empty((b, 2 * c2, ho, wo),
-                      dtype=torch.float32, device=x.device,
+                      dtype=x.dtype, device=x.device,
                       memory_format=torch.channels_last)
     ptrs = []
     for name in _WEIGHTS:
@@ -178,22 +197,27 @@ def _launch_block(lib, x, w, tile=None):
                              f"on {x.device}")
         ptrs.append(t.data_ptr())
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    err = lib.shuffle_block_f32(x.data_ptr(), out.data_ptr(), b, h, wd, cin,
-                                c2, s, tile, *ptrs, stream)
+    err = getattr(lib, _SYMBOLS[x.dtype])(x.data_ptr(), out.data_ptr(), b, h,
+                                          wd, cin, c2, s, tile, *ptrs, stream)
     fused_stage.launches += 1
+    if x.dtype == torch.bfloat16:
+        fused_stage.launches_bf16 += 1
     check(err, "fused_stage block")
     return out
 
 
 def fused_stage(x: torch.Tensor, blocks) -> torch.Tensor:
-    """Run a whole stage: x [B,Cin,H,W] → [B,Cout,⌈H/2⌉,⌈W/2⌉], channels_last.
+    """Run a whole stage: x [B,Cin,H,W] f32 or bf16 → [B,Cout,⌈H/2⌉,⌈W/2⌉]
+    in x's dtype, channels_last.
 
     `blocks` is `prepare_stage`'s list. A CPU tensor takes the plain
-    version; a CUDA tensor launches one kernel per block (counted in
-    `fused_stage.launches`; `fused_stage.calls` counts stages) or raises."""
-    if x.dim() != 4 or x.dtype != torch.float32:
-        raise ValueError(f"x must be [B,C,H,W] f32, got {tuple(x.shape)} "
-                         f"{x.dtype}")
+    version; a CUDA tensor launches the kernel of its dtype once per block
+    (counted in `fused_stage.launches`, the bf16 ones also in
+    `fused_stage.launches_bf16`; `fused_stage.calls` counts stages) or
+    raises."""
+    if x.dim() != 4 or x.dtype not in _SYMBOLS:
+        raise ValueError(f"x must be [B,C,H,W] f32 or bf16, got "
+                         f"{tuple(x.shape)} {x.dtype}")
     if x.device.type == "cpu":
         return fused_stage_plain(x, blocks)
     if x.device.type != "cuda":
@@ -209,3 +233,4 @@ def fused_stage(x: torch.Tensor, blocks) -> torch.Tensor:
 
 fused_stage.calls = 0
 fused_stage.launches = 0
+fused_stage.launches_bf16 = 0

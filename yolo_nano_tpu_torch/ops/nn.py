@@ -13,7 +13,11 @@ Points that keep the port equal to the JAX package:
   * nearest 2× up = each pixel repeated 2×2, nearest 2× down = x[::2, ::2].
 
 A conv unit is a `ConvUnit`: an OIHW conv with an optional bias, an optional
-BN, and an activation. `utils.fuse_bn.fold_bn` folds its BN away.
+BN, and an activation. `utils.fuse_bn.fold_bn` folds its BN away. In bf16
+(inference) it rounds as the JAX package's `conv_bn` does: the conv output
+to bf16, then the bias added in bf16, then the eval-mode BN and the
+activation in bf16. The max-pool, the nearest up/down sampling and the
+neck's adds run in the input's dtype.
 
 Initializers draw from an explicit `torch.Generator` on the CPU, with the JAX
 package's distributions, into JAX-layout (HWIO) numpy arrays: `convert`
@@ -22,6 +26,7 @@ builds modules from such a tree.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional
 
@@ -67,13 +72,20 @@ def init_bn(cout: int, bias_init: float = 1e-4):
             {"mean": np.zeros(cout, f32), "var": np.ones(cout, f32)})
 
 
+@functools.lru_cache(maxsize=None)
+def _leaky_slope(dtype: torch.dtype) -> float:
+    """LEAKY_SLOPE as x's dtype holds it, as the JAX package's weak-typed
+    0.1 is cast: 0.10009765625 in bf16."""
+    return torch.tensor(LEAKY_SLOPE, dtype=dtype).item()
+
+
 def activate(x: torch.Tensor, act: Optional[str]) -> torch.Tensor:
     if act is None:
         return x
     if act == "relu":
         return torch.relu(x)
     if act == "leaky":
-        return torch.where(x >= 0, x, LEAKY_SLOPE * x)
+        return torch.where(x >= 0, x, _leaky_slope(x.dtype) * x)
     raise ValueError(f"unknown activation {act!r}")
 
 
@@ -126,8 +138,18 @@ class ConvUnit(nn.Module):
         return self.weight.shape[-1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv2d(x, self.weight, self.bias, stride=self.stride,
-                     padding=(self.kernel_size - 1) // 2, groups=self.groups)
+        pad = (self.kernel_size - 1) // 2
+        if x.dtype in (torch.float32, torch.float64):
+            y = F.conv2d(x, self.weight, self.bias, stride=self.stride,
+                         padding=pad, groups=self.groups)
+        else:
+            # as the JAX package's conv_bn: the conv's output rounded to x's
+            # dtype, then the bias added in that dtype (F.conv2d would add
+            # it before the rounding)
+            y = F.conv2d(x, self.weight.to(x.dtype), stride=self.stride,
+                         padding=pad, groups=self.groups)
+            if self.bias is not None:
+                y = y + self.bias.to(y.dtype)[:, None, None]
         if self.has_bn and self.training:
             y, new_mean, new_var = batch_norm_train(
                 y, self.bn_scale, self.bn_bias, self.bn_mean, self.bn_var)
@@ -135,9 +157,11 @@ class ConvUnit(nn.Module):
                 self.bn_mean.copy_(new_mean)
                 self.bn_var.copy_(new_var)
         elif self.has_bn:
-            inv = torch.rsqrt(self.bn_var + BN_EPS) * self.bn_scale
-            y = ((y - self.bn_mean[:, None, None]) * inv[:, None, None]
-                 + self.bn_bias[:, None, None])
+            # in y's dtype, as the JAX package's eval-mode BN
+            dt = y.dtype
+            inv = (torch.rsqrt(self.bn_var + BN_EPS) * self.bn_scale).to(dt)
+            y = ((y - self.bn_mean.to(dt)[:, None, None]) * inv[:, None, None]
+                 + self.bn_bias.to(dt)[:, None, None])
         return activate(y, self.act)
 
 

@@ -8,6 +8,10 @@ For every `ConvUnit` that carries an eval-mode BatchNorm:
 the same arithmetic, in the same order, as the JAX package's `fold_bn` on
 its parameter tree. The folded model runs the same module code; a folded
 stage or head then runs through its Hopper kernel on the card.
+
+`cast_f32_to_bf16` is the JAX package's `utils/fuse_bn.py::cast_f32_to_bf16`
+on the port's modules: every f32 parameter becomes bf16, biases included;
+BN running stats (buffers, the JAX stats tree) stay as they are.
 """
 
 from __future__ import annotations
@@ -38,6 +42,21 @@ def _fold_children(module: nn.Module) -> None:
             setattr(module, name, fold_unit(child))
         else:
             _fold_children(child)
+
+
+def cast_f32_to_bf16(model: nn.Module) -> nn.Module:
+    """A copy of `model` whose f32 parameters are bf16; `model` is left as
+    it is. Cached kernel layouts of the copy are dropped, so that its
+    stages and heads take them from the bf16 weights."""
+    cast = copy.deepcopy(model)
+    for m in cast.modules():
+        for name, p in m.named_parameters(recurse=False):
+            if p.dtype == torch.float32:
+                setattr(m, name, nn.Parameter(p.detach().to(torch.bfloat16),
+                                              requires_grad=p.requires_grad))
+        if hasattr(m, "_kernel_weights"):
+            m._kernel_weights = None
+    return cast
 
 
 def fold_bn(model: nn.Module) -> nn.Module:
