@@ -8,8 +8,8 @@
 
 Phases, each of which raises on failure (exit code non-zero, no result line):
   1. device and build: needs CUDA; prints the card's name and power limit,
-     builds both kernels (f32 and bf16 launches) from
-     yolo_nano_tpu_torch/csrc with nvcc;
+     builds the kernels (fused_dw_pw, fused_stage in f32, fused_stage_bf16)
+     from yolo_nano_tpu_torch/csrc with nvcc, one process per source;
   2. each kernel against its plain PyTorch version on the card, at the
      main-path shapes for batch 32 (1.0x COCO model, 416 px): max abs error
      and tolerance, kernel / plain / library ms, and the bound; each f32
@@ -34,14 +34,16 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
   5. bf16 inference: the 0.5x COCO artifact (bf16 weights) through
      load_predictor at both operating points, batch 32: each block's bf16
      stage kernel against its plain block in bf16 ulps of the block's
-     max|ref| and the share of bit-equal elements, kernel / plain ms and
-     bound per stage, bf16
+     max|ref| and the share of bit-equal elements, both of them against
+     the block with f64 sums rounded where the function rounds (the
+     share of outputs off it), with its ms, tile and bound per launch;
+     kernel / plain ms and bound per stage, bf16
      fused_dw_pw at the heads; 16 bf16 fused_stage and 6 bf16 fused_dw_pw
      launches per forward; detections matched to the plain-version
      predict's at bf16 tolerance (match_detections); img/s and forward ms,
-     and the forward's device time by kernel. Then the 1.0x artifact through make_predict_fn
-     at its bf16 default (the stage kernel at c2 up to 232), checked the
-     same way;
+     and the forward's device time by kernel. Then the 1.0x artifact
+     through make_predict_fn at its bf16 default (the stage kernel at c2
+     up to 232), checked, timed and bounded the same way;
   6. a JSON line of kernel numbers, the card line, and the result line.
 
 A bound is the least time the card could take for a kernel's work: the
@@ -53,9 +55,10 @@ one pass at 989 TFLOP/s. (H100 SXM published peaks.)
 
 --sweep-stage-tiles times every block launch of the three stages at every
 tile side whose shared memory fits, each checked against the plain block,
-and marks the side the kernel's tile rule picks; it replaces phase 3 and prints no
-result line. --sweep-dw-pw-tiles does the same for fused_dw_pw at each head
-level over a grid of tiles (columns x rows).
+and marks the side the kernel's tile rule picks: in f32 at 1.0x, then in
+bf16 at 0.5x (the artifact) and at 1.0x (the f32 model cast); it replaces
+phase 3 and prints no result line. --sweep-dw-pw-tiles does the same for
+fused_dw_pw at each head level over a grid of tiles (columns x rows).
 """
 
 from __future__ import annotations
@@ -105,6 +108,11 @@ TIE_RTOL = 1e-3
 # output (20 measured in a stage-3 block of the 0.5x artifact)
 BF16_BLOCK_ULPS = 1
 BF16_BLOCK_EQUAL = 0.99
+# a bf16 stage's outputs off the witness (the blocks with f64 sums, rounded
+# where the function rounds): the kernel's count within this many times the
+# plain version's (cuDNN f32). 0.89x to 1.04x measured; sums carried
+# straight through the tensor core's accumulator gave 1.6x and 2x.
+BF16_WITNESS_RATIO = 1.5
 # bf16 detections (match_detections): a flipped bf16 rounding moves a head
 # logit by an ulp (1/32 to 1/16 at 4 to 16), and a score by e^ulp − 1 of
 # itself, 3% to 6.5% (10% for two ulps); one detection more or fewer on a
@@ -398,13 +406,14 @@ def sweep_dw_pw_tiles(model):
 
 def _stage_cost(x, blocks):
     """(flops, weight bytes) of a stage: multiply-adds ×2 of every 1×1 and
-    depthwise 3×3 of its blocks, at this input's sizes."""
+    depthwise 3×3 of its blocks, at this input's sizes; the weights once,
+    as the function holds them (not the kernels' padded copies)."""
     b, cin, h, w = x.shape
     flops, wbytes = 0, 0
     for blk in blocks:
         c2 = blk["pw1_w"].shape[1]
-        wbytes += nbytes(*(t for k, t in blk.items()
-                           if k != "stride" and not k.endswith("_pad")))
+        wbytes += nbytes(*(t for k, t in blk.items() if k != "stride"
+                           and not k.endswith(("_pad", "_bf16"))))
         if blk["stride"] == 2:
             ho, wo = (h + 1) // 2, (w + 1) // 2
             po, pi = b * ho * wo, b * h * w
@@ -474,47 +483,60 @@ def phase_fused_stage(model, images):
     return rows
 
 
-def sweep_stage_tiles(model, images):
+def sweep_stage_tiles(model, x, label="f32"):
     """Every block launch of stages 2/3/4 at every tile side that fits, on
-    the main path's activations: kernel ms, each output checked against the
-    plain block. '*' marks block_tile's pick."""
+    the main path's activations x (the stage-2 input, f32 or bf16): kernel
+    ms, each output checked against the plain block (f32: check_close;
+    bf16: BF16_BLOCK_ULPS and BF16_BLOCK_EQUAL). '*' marks block_tile's
+    pick; in bf16 each side also shows the blocks an SM holds at once."""
     from yolo_nano_tpu_torch.ops.kernels.fused_stage import (
-        _launch_block, _lib, block_plain, block_tile, prepare_stage)
-    from yolo_nano_tpu_torch.ops.nn import max_pool_3x3_s2
+        _launch_block, _lib, block_plain, block_tile, prepare_stage,
+        smem_bytes)
 
-    print(f"[sweep] fused_stage block ms by tile side, batch {BATCH}")
-    lib = _lib()
+    dtype = x.dtype
+    print(f"[sweep] fused_stage {label} block ms by tile side"
+          + (" (blocks per SM)" if dtype == torch.bfloat16 else "")
+          + f", batch {BATCH}")
+    lib = _lib(dtype)
     bb = model.backbone
     picked = best = 0.0
     with torch.inference_mode():
-        x = max_pool_3x3_s2(bb.conv1(images.permute(0, 3, 1, 2)))
-        x = x.contiguous(memory_format=torch.channels_last)
         for name in ("stage2", "stage3", "stage4"):
             for i, w in enumerate(prepare_stage(getattr(bb, name))):
                 b, cin, h, wd = x.shape
                 s, c2 = w["stride"], w["pw1_w"].shape[1]
                 ho, wo = (h - 1) // s + 1, (wd - 1) // s + 1
                 want = block_plain(x, w)
-                pick = block_tile(s, cin, c2, b, ho, wo)
-                times = {}
+                pick = block_tile(s, cin, c2, b, ho, wo, dtype)
+                times, occ = {}, {}
                 for tile in range(1, 17):
-                    if lib.shuffle_block_smem_bytes(tile, s, cin,
-                                                    c2) > SMEM_MAX:
+                    if smem_bytes(tile, s, cin, c2, dtype) > SMEM_MAX:
                         continue
-                    check_close(f"{name}[{i}] tile {tile}",
-                                _launch_block(lib, x, w, tile), want,
-                                torch.float32)
+                    got = _launch_block(lib, x, w, tile)
+                    where = f"{label} {name}[{i}] tile {tile}"
+                    if dtype == torch.float32:
+                        check_close(where, got, want, dtype)
+                    else:
+                        ulps = bf16_ulps(got, want)[0]
+                        same = float((got == want).float().mean())
+                        if ulps > BF16_BLOCK_ULPS or same < BF16_BLOCK_EQUAL:
+                            raise AssertionError(f"{where}: {ulps:g} ulps, "
+                                                 f"{same:.5f} bit-equal")
+                        occ[tile] = lib.shuffle_block_bf16_blocks_per_sm(
+                            tile, s, cin, c2)
                     times[tile] = time_ms(
                         lambda: _launch_block(lib, x, w, tile), iters=10,
                         queued=True)
-                sides = ", ".join(f"{t}{'*' if t == pick else ''} {ms:.4f}"
-                                  for t, ms in times.items())
+                sides = ", ".join(
+                    f"{t}{'*' if t == pick else ''}"
+                    + (f" ({occ[t]})" if t in occ else "") + f" {ms:.4f}"
+                    for t, ms in times.items())
                 print(f"  {name}[{i}] {tuple(x.shape)} stride {s}: {sides}")
                 picked += times[pick]
                 best += min(times.values())
                 x = want
-    print(f"  summed over the 16 launches: block_tile's picks {picked:.4f} ms,"
-          f" the fastest side of each {best:.4f} ms")
+    print(f"  {label}, summed over the 16 launches: block_tile's picks "
+          f"{picked:.4f} ms, the fastest side of each {best:.4f} ms")
 
 
 @contextlib.contextmanager
@@ -1173,37 +1195,73 @@ def bf16_ulps(got, want) -> tuple:
 def check_blocks_bf16(tag, x, blocks):
     """Each block's bf16 kernel against the plain block on the same input,
     the plain chain's: within BF16_BLOCK_ULPS of the block's max|ref| and
-    BF16_BLOCK_EQUAL bit-equal. → (the plain stage output, max ulps of
-    max|ref|, max abs error, share of bit-equal elements)."""
+    BF16_BLOCK_EQUAL bit-equal. Both are also held to the witness, the
+    block with f64 sums rounded to bf16 where the function rounds: over
+    the stage, the kernel's outputs off it within BF16_WITNESS_RATIO times
+    the plain version's. Prints each launch's device ms, tile and bound.
+    → (the plain stage output, a dict of the stage's errors, one row per
+    launch)."""
     from yolo_nano_tpu_torch.ops.kernels.fused_stage import (_launch_block,
-                                                             _lib, block_plain)
+                                                             _lib, block_plain,
+                                                             block_tile)
 
+    lib = _lib(torch.bfloat16)
     worst = own = err = 0.0
-    equal = total = 0
+    equal = total = off = plain_off = 0
     least = 1.0
+    launches = []
     for i, w in enumerate(blocks):
         want = block_plain(x, w)
-        got = _launch_block(_lib(), x, w)
+        got = _launch_block(lib, x, w)
+        exact = block_plain(x, w, wide=torch.float64)
         ulps, own_ulps = bf16_ulps(got, want)
         same = int((got == want).sum())
+        n = want.numel()
         worst, own = max(worst, ulps), max(own, own_ulps)
-        least = min(least, same / want.numel())
+        least = min(least, same / n)
         err = max(err, (got.float() - want.float()).abs().max().item())
         equal += same
-        total += want.numel()
-        if ulps > BF16_BLOCK_ULPS or same < BF16_BLOCK_EQUAL * want.numel():
+        total += n
+        if ulps > BF16_BLOCK_ULPS or same < BF16_BLOCK_EQUAL * n:
             raise AssertionError(
                 f"{tag} block {i}: bf16 kernel {ulps:g} ulps of max|ref| "
                 f"from its plain block (tolerance {BF16_BLOCK_ULPS}), "
-                f"{same / want.numel():.5f} bit-equal (at least "
-                f"{BF16_BLOCK_EQUAL})")
+                f"{same / n:.5f} bit-equal (at least {BF16_BLOCK_EQUAL})")
+        k_off, p_off = int((got != exact).sum()), int((want != exact).sum())
+        off += k_off
+        plain_off += p_off
+        flops, wbytes = _stage_cost(x, [w])
+        b_ms, b_by = bound(nbytes(x, want) + wbytes, flops, torch.bfloat16)
+        xx = x
+        b, cin, h, wd = x.shape
+        s, c2 = w["stride"], w["pw1_w"].shape[1]
+        row = dict(block=i, stride=s, shape=tuple(x.shape),
+                   tile=block_tile(s, cin, c2, b, (h - 1) // s + 1,
+                                   (wd - 1) // s + 1, torch.bfloat16),
+                   ms=time_ms(lambda: _launch_block(lib, xx, w), queued=True),
+                   bound_ms=b_ms, ulps=ulps, bit_equal_share=same / n,
+                   off_f64_share=k_off / n, plain_off_f64_share=p_off / n)
+        print(f"    {tag} block {i} (stride {s}, tile {row['tile']}): "
+              f"{row['ms']:.4f} ms, bound {b_ms * 1e3:.2f} us ({b_by}), "
+              f"{ulps:.3g} ulps of max|ref|, {same / n:.6f} bit-equal; off "
+              f"the f64-sum witness: kernel {k_off / n:.6f}, plain "
+              f"{p_off / n:.6f}")
+        launches.append(row)
         x = want
     print(f"  {tag}: blocks within {worst:.3g} bf16 ulps of max|ref| of the "
           f"plain blocks (tolerance {BF16_BLOCK_ULPS}; {own:.3g} ulps of the "
           f"element's own magnitude at most), max abs err {err:.3g}, "
-          f"{equal / total:.5f} of the elements bit-equal (the least of a "
-          f"block {least:.5f})")
-    return x, worst, err, equal / total
+          f"{equal / total:.6f} of the elements bit-equal (the least of a "
+          f"block {least:.6f}); off the f64-sum witness: kernel "
+          f"{off / total:.6f} ({off}), plain {plain_off / total:.6f} "
+          f"({plain_off})")
+    if off > BF16_WITNESS_RATIO * plain_off:
+        raise AssertionError(
+            f"{tag}: {off} kernel outputs off the f64-sum witness, over "
+            f"{BF16_WITNESS_RATIO}x the plain version's {plain_off}")
+    return x, dict(max_ulps=worst, max_abs_err=err,
+                   bit_equal_share=equal / total, off_f64_share=off / total,
+                   plain_off_f64_share=plain_off / total), launches
 
 
 def stem_bf16(model, images_np):
@@ -1230,7 +1288,7 @@ def phase_fused_stage_bf16(model, images_np):
         for name in ("stage2", "stage3", "stage4"):
             blocks = prepare_stage(getattr(bb, name))
             tag = f"{name} {tuple(x.shape)} bf16"
-            want, ulps, err, equal = check_blocks_bf16(tag, x, blocks)
+            want, errors, launches = check_blocks_bf16(tag, x, blocks)
             whole = fused_stage(x, blocks)
             stage_equal = float((whole == fused_stage_plain(x, blocks)
                                  ).float().mean())
@@ -1238,15 +1296,14 @@ def phase_fused_stage_bf16(model, images_np):
             b_ms, b_by = bound(nbytes(x, want) + wbytes, flops,
                                torch.bfloat16)
             xx = x
-            row = dict(shape=tag, max_abs_err=err, max_ulps=ulps,
-                       bit_equal_share=equal,
+            row = dict(shape=tag, **errors,
                        stage_bit_equal_share=stage_equal,
                        ms=time_ms(lambda: fused_stage(xx, blocks),
                                   queued=True),
                        plain_ms=time_ms(lambda: fused_stage_plain(xx, blocks),
                                         queued=True),
                        library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                       launches_per_call=len(blocks))
+                       launches_per_call=len(blocks), launches=launches)
             print(f"    kernel {row['ms']:.4f} ms ({len(blocks)} launches), "
                   f"plain {row['plain_ms']:.4f} ms, bound "
                   f"{b_ms * 1e3:.2f} us ({b_by}); the whole stage "
@@ -1265,7 +1322,8 @@ def phase_make_predict_fn_bf16(images_np):
     from yolo_nano_tpu_torch.cli.common import make_predict_fn
     from yolo_nano_tpu_torch.config import config_from_json
     from yolo_nano_tpu_torch.convert import load_npz
-    from yolo_nano_tpu_torch.ops.kernels.fused_stage import prepare_stage
+    from yolo_nano_tpu_torch.ops.kernels.fused_stage import (fused_stage,
+                                                             prepare_stage)
 
     tree, meta = load_npz(NPZ)
     cfg = config_from_json(meta)
@@ -1287,19 +1345,36 @@ def phase_make_predict_fn_bf16(images_np):
     matches = match_detections(got, plain, cfg.conf_thresh, cfg.nms_thresh,
                                **BF16_MATCH, cutoffs=cutoffs)
     matches["heads"] = heads
+    stage_ms, stage_errors = {}, {}
+    bound_ms = launch_bound_ms = 0.0
     with torch.inference_mode():
         x = stem_bf16(fn.model, images_np)
         for name in ("stage2", "stage3", "stage4"):
             blocks = prepare_stage(getattr(fn.model.backbone, name))
-            x = check_blocks_bf16(f"1.0x {name} {tuple(x.shape)} bf16", x,
-                                  blocks)[0]
+            xx = x
+            stage_ms[name] = time_ms(lambda: fused_stage(xx, blocks),
+                                     queued=True)
+            want, stage_errors[name], launches = check_blocks_bf16(
+                f"1.0x {name} {tuple(x.shape)} bf16", x, blocks)
+            flops, wbytes = _stage_cost(x, blocks)
+            bound_ms += bound(nbytes(x, want) + wbytes, flops,
+                              torch.bfloat16)[0]
+            launch_bound_ms += sum(r["bound_ms"] for r in launches)
+            x = want
         xb = torch.from_numpy(images_np).cuda().to(torch.bfloat16)
         fwd_ms = time_ms(lambda: fn.model(xb), iters=10)
     shown = {k: v for k, v in matches.items() if k != "heads"}
     print(f"  launches {counts}; {int(got[3].sum())} detections match the "
-          f"plain-version predict's: {shown}; forward {fwd_ms:.3f} ms")
+          f"plain-version predict's: {shown}; forward {fwd_ms:.3f} ms; bf16 "
+          f"fused_stage at 1.0x {sum(stage_ms.values()):.4f} ms per forward "
+          f"({', '.join(f'{k} {v:.4f}' for k, v in stage_ms.items())}), "
+          f"bound {bound_ms:.4f} ms (the launches' bounds summed "
+          f"{launch_bound_ms:.4f} ms)")
     return dict(counts=counts, forward_ms=fwd_ms, matches=matches,
-                detections=int(got[3].sum()))
+                detections=int(got[3].sum()), fused_stage_ms=stage_ms,
+                fused_stage_bound_ms=bound_ms,
+                fused_stage_launch_bound_ms=launch_bound_ms,
+                fused_stage_errors=stage_errors)
 
 
 def kernel_row(name, source, rows, per_fwd, launches, replaces):
@@ -1330,8 +1405,23 @@ def main():
     images_np = render_scenes(BATCH, SIZE)
     model = _trained_model()
     if args.sweep_stage_tiles:
+        from yolo_nano_tpu_torch.convert import load_model
+        from yolo_nano_tpu_torch.ops.nn import max_pool_3x3_s2
+        from yolo_nano_tpu_torch.utils.fuse_bn import cast_f32_to_bf16
+
         phase_fused_stage(model, torch.from_numpy(images_np).cuda())
-        sweep_stage_tiles(model, torch.from_numpy(images_np).cuda())
+        with torch.inference_mode():
+            x = max_pool_3x3_s2(model.backbone.conv1(
+                torch.from_numpy(images_np).cuda().permute(0, 3, 1, 2)))
+        sweep_stage_tiles(model, x.contiguous(
+            memory_format=torch.channels_last))
+        model05 = load_model(NPZ_05X)[0].cuda()
+        with torch.inference_mode():
+            sweep_stage_tiles(model05, stem_bf16(model05, images_np),
+                              "bf16 0.5x")
+            model_bf16 = cast_f32_to_bf16(model)
+            sweep_stage_tiles(model_bf16, stem_bf16(model_bf16, images_np),
+                              "bf16 1.0x")
         print(card)
         return
     if args.sweep_dw_pw_tiles:
@@ -1367,17 +1457,16 @@ def main():
                and r["acts"] == "leaky/leaky"]
     dw_pw_src, dw_pw_tpu = ("fused_dw_pw.cu",
                             "yolo_nano_tpu/ops/pallas/fused_conv.py:108")
-    stage_src, stage_tpu = ("fused_stage.cu",
-                            "yolo_nano_tpu/ops/pallas/fused_stage.py:223")
+    stage_tpu = "yolo_nano_tpu/ops/pallas/fused_stage.py:223"
     kernels = [
         kernel_row("fused_dw_pw", dw_pw_src, main_dw, 2,
                    counts["fused_dw_pw"], dw_pw_tpu),
-        kernel_row("fused_stage", stage_src, stage_rows, 1,
+        kernel_row("fused_stage", "fused_stage.cu", stage_rows, 1,
                    counts["fused_stage"], stage_tpu),
         # the bf16 launches of the 0.5x artifact's main path (phase 5)
         kernel_row("fused_dw_pw_bf16", dw_pw_src, dw_rows05, 2,
                    counts05["fused_dw_pw_bf16"], dw_pw_tpu),
-        kernel_row("fused_stage_bf16", stage_src, stage_rows05, 1,
+        kernel_row("fused_stage_bf16", "fused_stage_bf16.cu", stage_rows05, 1,
                    counts05["fused_stage_bf16"], stage_tpu)]
     for row in kernels[:2]:  # the training path's fold→predict, alone
         row["launches_train_fold_predict"] = train_counts[row["name"]]

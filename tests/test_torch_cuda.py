@@ -327,7 +327,7 @@ def test_fused_stage_bf16_kernel_matches_plain(dev, cin, cout, n, hw,
     assert got.shape == (2, cout, (hw[0] + 1) // 2, (hw[1] + 1) // 2)
     assert got.is_contiguous(memory_format=torch.channels_last)
     assert torch.equal(stage(x), got)
-    lib = _lib()
+    lib = _lib(torch.bfloat16)
     for w in blocks:
         want = block_plain(x, w)
         out = _launch_block(lib, x, w)
@@ -335,6 +335,49 @@ def test_fused_stage_bf16_kernel_matches_plain(dev, cin, cout, n, hw,
         ulps = _bf16_ulps(out, want)
         equal = (out == want).float().mean().item()
         assert ulps <= BF16_BLOCK_ULPS and equal >= 0.99, (ulps, equal)
+        x = want
+
+
+@pytest.mark.parametrize("cin,cout,n,hw", [
+    (24, 48, 2, (80, 80)),      # 0.5x stage inputs at 320 px
+    (48, 96, 2, (40, 40)),
+    (96, 192, 2, (20, 20)),
+    (24, 48, 2, (152, 152)),    # 0.5x stage inputs at 608 px
+    (48, 96, 2, (76, 76)),
+    (96, 192, 2, (38, 38)),
+    (24, 116, 2, (152, 152)),   # 1.0x stage inputs at 608 px
+    (116, 232, 2, (76, 76)),
+    (232, 464, 2, (38, 38)),
+])
+def test_fused_stage_bf16_at_ragged_sizes(dev, cin, cout, n, hw):
+    """Stage inputs of the multi-scale sizes 320 and 608 px, whose output
+    sides (40, 20, 10; 76, 38, 19) the tile rule's sides need not divide:
+    every block of a bf16 stage within BF16_BLOCK_ULPS of max|ref| of its
+    plain block and 99% bit-equal, at the tile the rule picks and at
+    every side that fits."""
+    from yolo_nano_tpu_torch.ops.kernels.fused_stage import (
+        _launch_block, _lib, block_plain, prepare_stage, smem_bytes)
+    from yolo_nano_tpu_torch.utils.fuse_bn import cast_f32_to_bf16
+
+    g = torch.Generator().manual_seed(7)
+    blocks = prepare_stage(cast_f32_to_bf16(
+        _random_stage(g, cin, cout, n)).to(dev))
+    x = torch.relu(_randn(g, 2, hw[0], hw[1], cin)).permute(0, 3, 1, 2).to(
+        dev, torch.bfloat16)
+    lib = _lib(torch.bfloat16)
+    for w in blocks:
+        want = block_plain(x, w)
+        b, c, h, wd = x.shape
+        c2 = w["pw1_w"].shape[1]
+        tiles = [None] + [t for t in range(1, 17) if smem_bytes(
+            t, w["stride"], c, c2, torch.bfloat16) <= 227 * 1024]
+        for tile in tiles:
+            out = _launch_block(lib, x, w, tile)
+            torch.cuda.synchronize()
+            ulps = _bf16_ulps(out, want)
+            equal = (out == want).float().mean().item()
+            assert ulps <= BF16_BLOCK_ULPS and equal >= 0.99, (tile, ulps,
+                                                               equal)
         x = want
 
 
@@ -351,8 +394,8 @@ def test_fused_stage_bf16_takes_an_unaligned_input(dev, cin, cout):
     blocks = prepare_stage(_random_stage(g, cin, cout, 2).to(dev))
     for x_cin, run, plain in ((cin, lambda x: fused_stage(x, blocks),
                                lambda x: fused_stage_plain(x, blocks)),
-                              (cout, lambda x: _launch_block(_lib(), x,
-                                                             blocks[1]),
+                              (cout, lambda x: _launch_block(
+                                  _lib(torch.bfloat16), x, blocks[1]),
                                lambda x: block_plain(x, blocks[1]))):
         want_in = torch.relu(_randn(g, 2, 13, 11, x_cin)).to(
             dev, torch.bfloat16)
@@ -370,17 +413,47 @@ def test_fused_stage_bf16_takes_an_unaligned_input(dev, cin, cout):
 
 
 def test_block_tiles_at_half_width(dev):
-    """The tile rule at the 0.5x stages (c2 = 24, 48, 96; the bf16 main
-    path, whose layout is the f32 kernel's), batch 32, 416 px: a side that
-    fits at each launch."""
-    from yolo_nano_tpu_torch.ops.kernels.fused_stage import _lib, block_tile
+    """The bf16 kernel's own tile rule and shared-memory layout
+    (shuffle_block_bf16_tile, shuffle_block_bf16_smem_bytes in
+    csrc/fused_stage_bf16.cu), batch 32, 416 px: (stride, Cin, c2, output
+    side) → tile side at the 0.5x stages (c2 = 24, 48, 96; the bf16 main
+    path) and at the 1.0x stages (c2 = 58, 116, 232; make_predict_fn), each
+    the side chip_smoke.py --sweep-stage-tiles measured fastest but at one
+    1.0x launch; the blocks an SM holds; the layout's bytes, with the
+    pointwise weights resident (up to 64 KB) or streamed."""
+    from yolo_nano_tpu_torch.ops.kernels.fused_stage import (_lib,
+                                                             block_tile,
+                                                             smem_bytes)
 
-    smem = _lib().shuffle_block_smem_bytes
-    want = {(2, 24, 24, 52): 13, (1, 48, 24, 52): 13, (2, 48, 48, 26): 13,
-            (1, 96, 48, 26): 13, (2, 96, 96, 13): 7, (1, 192, 96, 13): 7}
-    for (stride, cin, c2, side), tile in want.items():
-        assert block_tile(stride, cin, c2, 32, side, side) == tile
-        assert smem(tile, stride, cin, c2) <= 227 * 1024
+    bf16 = torch.bfloat16
+    lib = _lib(bf16)
+    smem_max = 227 * 1024
+    # (stride, Cin, c2, side) → (tile, blocks an SM)
+    want = {(2, 24, 24, 52): (13, 2), (1, 48, 24, 52): (13, 2),
+            (2, 48, 48, 26): (13, 1), (1, 96, 48, 26): (13, 2),
+            (2, 96, 96, 13): (7, 1), (1, 192, 96, 13): (7, 2),
+            (2, 24, 58, 52): (9, 2), (1, 116, 58, 52): (13, 2),
+            (2, 116, 116, 26): (7, 1), (1, 232, 116, 26): (13, 1),
+            (2, 232, 232, 13): (5, 1), (1, 464, 232, 13): (7, 1)}
+    for (stride, cin, c2, side), (tile, blocks) in want.items():
+        assert block_tile(stride, cin, c2, 32, side, side, bf16) == tile
+        assert smem_bytes(tile, stride, cin, c2, bf16) <= smem_max
+        assert lib.shuffle_block_bf16_blocks_per_sm(tile, stride, cin,
+                                                    c2) == blocks
+    # stride 1, Cin 96, c2 48, tile 13: 225 region cells' and 169 pixels'
+    # offsets (396 ints), the biases and taps (48 + 48 + 9·48 + 48 floats);
+    # X 240 rows at 48 + 8 bf16, L 169 rows at 56, D 176 rows at 56; pw1's
+    # and pw2's weights resident, 48 rows at 48 + 8
+    assert smem_bytes(13, 1, 96, 48, bf16) == 4 * (396 + 576) + 2 * (
+        240 * 56 + 169 * 56 + 176 * 56 + 2 * 48 * 56)
+    # streamed, stride 2, Cin = c2 = 232, tile 5: 121 cells + 25 pixels
+    # (148 ints) and 5336 floats (three biases, two tap sets); X 128 rows at
+    # 240 + 8, L 25 rows and D 32 rows at 248; two chunks of 232 rows at 32
+    # + 8. Side 6 fits, 7 does not
+    assert smem_bytes(5, 2, 232, 232, bf16) == 4 * (148 + 5336) + 2 * (
+        128 * 248 + 25 * 248 + 32 * 248 + 2 * 232 * 40)
+    assert smem_bytes(6, 2, 232, 232, bf16) <= smem_max < smem_bytes(
+        7, 2, 232, 232, bf16)
 
 
 def test_block_tiles_at_main_path_widths(dev):

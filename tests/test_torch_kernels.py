@@ -133,7 +133,9 @@ def test_prepare_stage_layouts_and_checks(folded_backbone):
     assert tuple(s2["b1dw_w"].shape) == (9, 116)
     assert tuple(s1["pw1_w"].shape) == (116, 116) and "b1dw_w" not in s1
     assert tuple(s1["dw_w"].shape) == (9, 116)
-    assert all(t.is_contiguous() and t.dtype == torch.float32
+    # f32, but the bf16 kernel's copies of the pointwise weights
+    assert all(t.is_contiguous() and t.dtype == (
+        torch.bfloat16 if k.endswith("_bf16") else torch.float32)
                for b in blocks for k, t in b.items() if k != "stride")
     with pytest.raises(ValueError, match="stride-2 block"):
         tfs.prepare_stage(list(model.stage3)[1:])

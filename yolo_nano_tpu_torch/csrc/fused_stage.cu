@@ -64,16 +64,7 @@
 // products wait on latency, and a round of 16 warps covers twice the rows of
 // 8 (for c2 = 232, 64 rows), so each block streams its weights half as often.
 //
-// bf16 (shuffle_block_bf16): activations are bf16 in device memory and f32
-// in shared memory, where every value is rounded to bf16 (to nearest even,
-// __float2bfloat16) before the next op reads it: pw1, the depthwise and pw2
-// round where the TPU kernel rounds (its _mm and _dw3x3 in x's dtype). The
-// products take one TF32 pass (exact on bf16 operands) with the weights
-// rounded to bf16 and f32 accumulation; the depthwise sums in f32. The
-// region arrives by plain vector loads converted to f32 (not cp.async), the
-// stride-1 block reads x1 from device memory at its store, and outputs
-// leave as bf16 pairs (16-byte stores where 2*c2 is a multiple of 8). The
-// shared-memory layout and the tile rule are the f32 kernel's.
+// The bf16 kernel (shuffle_block_bf16) is fused_stage_bf16.cu.
 
 #include <cstdint>
 
@@ -87,62 +78,6 @@ using ynt::mma_tf32::round_up;
 using ynt::mma_tf32::wbuf_floats;
 
 constexpr int kThreads = ynt::mma_tf32::kWarps * 32;
-
-using bf16 = __nv_bfloat16;
-
-// v rounded to T and back: the value a T activation holds.
-template <typename T>
-__device__ __forceinline__ float round_to(float v) {
-  return ynt::to_float(ynt::from_float<T>(v));
-}
-
-// The input region in bf16 into X as f32, V channels a load (V = 8: 16-byte
-// loads; 2: 4-byte; 1), 0 outside the image and in the pad columns up to
-// k1p. k1 is a multiple of V, and so is every pixel's channel offset.
-template <int V>
-__device__ __forceinline__ void load_region_bf16(float* X, int ld,
-                                                 const bf16* x_in,
-                                                 const int* offs, int cells,
-                                                 int k1, int k1p) {
-  const int vecs = k1p / V;
-  for (int i = threadIdx.x; i < cells * vecs; i += blockDim.x) {
-    const int r = i / vecs;
-    const int c = i % vecs * V;
-    float v[V];
-    if (offs[r] >= 0 && c < k1) {
-      const bf16* src = x_in + offs[r] + c;
-      if constexpr (V == 8) {
-        const uint4 u = *reinterpret_cast<const uint4*>(src);
-        const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const float2 f = __bfloat1622float2(
-              *reinterpret_cast<const __nv_bfloat162*>(&w[j]));
-          v[2 * j] = f.x;
-          v[2 * j + 1] = f.y;
-        }
-      } else if constexpr (V == 2) {
-        const float2 f = __bfloat1622float2(
-            *reinterpret_cast<const __nv_bfloat162*>(src));
-        v[0] = f.x;
-        v[1] = f.y;
-      } else {
-        v[0] = __bfloat162float(*src);
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < V; ++j) v[j] = 0.f;
-    }
-    float* dst = X + r * ld + c;
-    if constexpr (V == 8) {
-      reinterpret_cast<float4*>(dst)[0] = make_float4(v[0], v[1], v[2], v[3]);
-      reinterpret_cast<float4*>(dst)[1] = make_float4(v[4], v[5], v[6], v[7]);
-    } else {
-#pragma unroll
-      for (int j = 0; j < V; ++j) dst[j] = v[j];
-    }
-  }
-}
 
 struct BlockWeights {
   const float* pw1_w;   // [round8(K1)][round8(c2)], K1 = Cin (stride 2) or c2
@@ -177,12 +112,12 @@ struct Layout {
   }
 };
 
-// Depthwise 3x3 (+ bias, no act, rounded to T) at the tile's P outputs: src
-// is a region buffer (row stride lds, R x R cells), dst gets rows16(P) x
-// round8(C) at row stride ldd, its pad columns 0. A thread keeps one channel's 9 taps and
+// Depthwise 3x3 (+ bias, no act) at the tile's P outputs: src is a region
+// buffer (row stride lds, R x R cells), dst gets rows16(P) x round8(C) at
+// row stride ldd, its pad columns 0. A thread keeps one channel's 9 taps and
 // bias in registers and walks pixels; neighbouring threads take neighbouring
 // channels.
-template <int STRIDE, typename T>
+template <int STRIDE>
 __device__ __forceinline__ void depthwise(const float* src, int lds, int R,
                                           int tile, int C, const float* w,
                                           const float* b, float* dst,
@@ -211,20 +146,17 @@ __device__ __forceinline__ void depthwise(const float* src, int lds, int R,
             acc = fmaf(s0[(dy * R + dx) * lds], tap[dy * 3 + dx], acc);
         acc += bias;
       }
-      dst[p * ldd + c] = round_to<T>(acc);
+      dst[p * ldd + c] = acc;
       for (px += groups; px >= tile; px -= tile) ++py;
     }
   }
 }
 
-template <int STRIDE, typename T>
+template <int STRIDE>
 __global__ void __launch_bounds__(kThreads, 1)
-    shuffle_block_kernel(const T* __restrict__ x, T* __restrict__ out,
+    shuffle_block_kernel(const float* __restrict__ x, float* __restrict__ out,
                          BlockWeights wts, int H, int W, int Cin, int Ho,
                          int Wo, int c2, int tile, int tiles_x) {
-  constexpr bool kF32 = sizeof(T) == 4;
-  // f32: 3xTF32; bf16: one pass on bf16 operands, the weights rounded to bf16
-  constexpr int kPasses = kF32 ? 3 : 1;
   extern __shared__ float smem[];
   const Layout lay(tile, STRIDE, Cin, c2);
   const int R = lay.R;
@@ -240,8 +172,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int n = blockIdx.y;
   const int oy0 = (blockIdx.x / tiles_x) * tile;
   const int ox0 = (blockIdx.x % tiles_x) * tile;
-  const T* xn = x + static_cast<int64_t>(n) * H * W * Cin;
-  T* on = out + static_cast<int64_t>(n) * Ho * Wo * Cout;
+  const float* xn = x + static_cast<int64_t>(n) * H * W * Cin;
+  float* on = out + static_cast<int64_t>(n) * Ho * Wo * Cout;
   // input pixel (iy, ix) of region cell r and output pixel of tile pixel
   // p, as offsets; -1 outside the image
   for (int r = threadIdx.x; r < R * R; r += blockDim.x) {
@@ -257,22 +189,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   __syncthreads();
 
-  // 1. the region into X (f32: by cp.async; bf16: by loads, widened), 0
-  //    outside the image and in the pad columns; the stride-1 block reads
-  //    x2 = x[c2:]
+  // 1. the region into X by cp.async, 0 outside the image and in the pad
+  //    columns; the stride-1 block reads x2 = x[c2:]
   const int k1 = STRIDE == 2 ? Cin : c2;
   const int k1p = round_up(k1, 8);
-  const T* x_in = xn + (STRIDE == 2 ? 0 : c2);
-  if constexpr (!kF32) {
-    const auto addr = reinterpret_cast<uintptr_t>(x_in);
-    if (k1 % 8 == 0 && Cin % 8 == 0 && addr % 16 == 0)
-      load_region_bf16<8>(X, ld, x_in, offs, R * R, k1, k1p);
-    else if (k1 % 2 == 0 && Cin % 2 == 0 && addr % 4 == 0)
-      load_region_bf16<2>(X, ld, x_in, offs, R * R, k1, k1p);
-    else
-      load_region_bf16<1>(X, ld, x_in, offs, R * R, k1, k1p);
-  } else if (k1 % 4 == 0 && Cin % 4 == 0 &&
-             reinterpret_cast<uintptr_t>(x_in) % 16 == 0) {
+  const float* x_in = xn + (STRIDE == 2 ? 0 : c2);
+  if (k1 % 4 == 0 && Cin % 4 == 0 &&
+      reinterpret_cast<uintptr_t>(x_in) % 16 == 0) {
     const int vecs = k1p / 4;
     for (int i = threadIdx.x; i < R * R * vecs; i += blockDim.x) {
       const int r = i / vecs;
@@ -299,95 +222,43 @@ __global__ void __launch_bounds__(kThreads, 1)
     ynt::mma_tf32::prefetch(Cin, c2, wts.b1pw_w, wbuf);
     ynt::mma_tf32::cp_async_wait<1>();
     __syncthreads();
-    depthwise<2, T>(X, ld, R, tile, Cin, wts.b1dw_w, wts.b1dw_b, D, lde);
-    ynt::mma_tf32::gemm<false, kPasses>(
-        P, Cin, c2, D, lde, wts.b1pw_w, wbuf, true,
-        [&](int p, int o, float v) {
-          const int q = opix[p];
-          if (q >= 0)
-            on[q + 2 * o] =
-                ynt::from_float<T>(fmaxf(v + __ldg(&wts.b1pw_b[o]), 0.f));
-        });
+    depthwise<2>(X, ld, R, tile, Cin, wts.b1dw_w, wts.b1dw_b, D, lde);
+    ynt::mma_tf32::gemm(P, Cin, c2, D, lde, wts.b1pw_w, wbuf, true,
+                        [&](int p, int o, float v) {
+                          const int q = opix[p];
+                          if (q >= 0)
+                            on[q + 2 * o] =
+                                fmaxf(v + __ldg(&wts.b1pw_b[o]), 0.f);
+                        });
   } else {
     ynt::mma_tf32::prefetch(k1, c2, wts.pw1_w, wbuf);
   }
 
   // 3. pw1 + relu over the region, in place; 0 outside the image (the
   //    depthwise's zero pad)
-  ynt::mma_tf32::gemm<false, kPasses>(
-      R * R, k1, c2, X, ld, wts.pw1_w, wbuf, STRIDE == 1,
-      [&](int r, int o, float v) {
-        X[r * ld + o] = offs[r] >= 0 ? round_to<T>(fmaxf(
-                                           v + __ldg(&wts.pw1_b[o]), 0.f))
-                                     : 0.f;
-      });
+  ynt::mma_tf32::gemm(R * R, k1, c2, X, ld, wts.pw1_w, wbuf, STRIDE == 1,
+                      [&](int r, int o, float v) {
+                        X[r * ld + o] =
+                            offs[r] >= 0 ? fmaxf(v + __ldg(&wts.pw1_b[o]), 0.f)
+                                         : 0.f;
+                      });
   // pw2's first weight chunk loads during the depthwise
   ynt::mma_tf32::prefetch(c2, c2, wts.pw2_w, wbuf);
   __syncthreads();
 
   // 4. depthwise 3x3 (+ bias) at the tile's outputs into D
   const int ldd = act_stride(c2);
-  depthwise<STRIDE, T>(X, ld, R, tile, c2, wts.dw_w, wts.dw_b, D, ldd);
+  depthwise<STRIDE>(X, ld, R, tile, c2, wts.dw_w, wts.dw_b, D, ldd);
 
   if (STRIDE == 2) {
     // 5. pw2 + relu to the odd channels
-    ynt::mma_tf32::gemm<false, kPasses>(
-        P, c2, c2, D, ldd, wts.pw2_w, wbuf, true,
-        [&](int p, int o, float v) {
-          const int q = opix[p];
-          if (q >= 0)
-            on[q + 2 * o + 1] =
-                ynt::from_float<T>(fmaxf(v + __ldg(&wts.pw2_b[o]), 0.f));
-        });
-  } else if constexpr (!kF32) {
-    // 5. pw2 + relu over D in place, rounded to bf16; then each output
-    //    pixel, x1 (read from device memory) and pw2 interleaved, in 16-byte
-    //    stores of 4 pairs where c2 is a multiple of 4, else in pairs
-    __syncthreads();
-    ynt::mma_tf32::gemm<false, 1>(
-        P, c2, c2, D, ldd, wts.pw2_w, wbuf, true,
-        [&](int p, int o, float v) {
-          D[p * ldd + o] = round_to<T>(fmaxf(v + __ldg(&wts.pw2_b[o]), 0.f));
-        });
-    __syncthreads();
-    auto in_pixel = [&](int p) -> int64_t {
-      return (static_cast<int64_t>(oy0 + p / tile) * W + ox0 + p % tile) *
-             Cin;
-    };
-    const bool vec = c2 % 4 == 0 && Cin % 4 == 0 &&
-                     reinterpret_cast<uintptr_t>(xn) % 16 == 0 &&
-                     reinterpret_cast<uintptr_t>(on) % 16 == 0;
-    if (vec) {
-      const int quads = c2 / 4;
-      for (int i = threadIdx.x; i < P * quads; i += blockDim.x) {
-        const int p = i / quads;
-        const int c = i % quads * 4;
-        if (opix[p] < 0) continue;
-        const uint2 l = *reinterpret_cast<const uint2*>(xn + in_pixel(p) + c);
-        const bf16* x1 = reinterpret_cast<const bf16*>(&l);
-        const float* d = D + p * ldd + c;
-        uint32_t u[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          __nv_bfloat162 pair;
-          pair.x = x1[j];
-          pair.y = __float2bfloat16(d[j]);
-          u[j] = *reinterpret_cast<const uint32_t*>(&pair);
-        }
-        *reinterpret_cast<uint4*>(on + opix[p] + 2 * c) =
-            make_uint4(u[0], u[1], u[2], u[3]);
-      }
-    } else {
-      for (int i = threadIdx.x; i < P * c2; i += blockDim.x) {
-        const int p = i / c2;
-        const int c = i % c2;
-        if (opix[p] < 0) continue;
-        __nv_bfloat162 pair;
-        pair.x = xn[in_pixel(p) + c];
-        pair.y = __float2bfloat16(D[p * ldd + c]);
-        *reinterpret_cast<__nv_bfloat162*>(on + opix[p] + 2 * c) = pair;
-      }
-    }
+    ynt::mma_tf32::gemm(P, c2, c2, D, ldd, wts.pw2_w, wbuf, true,
+                        [&](int p, int o, float v) {
+                          const int q = opix[p];
+                          if (q >= 0)
+                            on[q + 2 * o + 1] =
+                                fmaxf(v + __ldg(&wts.pw2_b[o]), 0.f);
+                        });
   } else {
     // 5. x1 of the tile's pixels into X (free once the depthwise is done) by
     //    cp.async, during pw2; pw2 + relu over D in place; then each output
@@ -437,8 +308,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 constexpr size_t kSmemMax = 227 * 1024;
 
-template <int STRIDE, typename T>
-cudaError_t launch(const T* x, T* out, const BlockWeights& wts, int B,
+template <int STRIDE>
+cudaError_t launch(const float* x, float* out, const BlockWeights& wts, int B,
                    int H, int W, int Cin, int c2, int tile, size_t smem,
                    cudaStream_t s) {
   const int Ho = (H - 1) / STRIDE + 1;
@@ -446,13 +317,13 @@ cudaError_t launch(const T* x, T* out, const BlockWeights& wts, int B,
   const int tiles_x = (Wo + tile - 1) / tile;
   const int tiles_y = (Ho + tile - 1) / tile;
   const cudaError_t err = cudaFuncSetAttribute(
-      shuffle_block_kernel<STRIDE, T>,
+      shuffle_block_kernel<STRIDE>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  shuffle_block_kernel<STRIDE, T><<<dim3(tiles_x * tiles_y, B), kThreads,
-                                    smem, s>>>(x, out, wts, H, W, Cin, Ho, Wo,
-                                               c2, tile, tiles_x);
+  shuffle_block_kernel<STRIDE><<<dim3(tiles_x * tiles_y, B), kThreads,
+                                 smem, s>>>(x, out, wts, H, W, Cin, Ho, Wo, c2,
+                                            tile, tiles_x);
   return cudaGetLastError();
 }
 
@@ -488,38 +359,9 @@ double tile_cost(int tile, int stride, int Cin, int c2, int B, int Ho,
   return waves * (steps + kPixelSteps * tile * tile);
 }
 
-// One block launch in T: checks, then the kernel of its stride.
-template <typename T>
-int launch_block(const void* x, void* out, int B, int H, int W, int Cin,
-                 int c2, int stride, int tile, const void* pw1_w,
-                 const void* pw1_b, const void* dw_w, const void* dw_b,
-                 const void* pw2_w, const void* pw2_b, const void* b1dw_w,
-                 const void* b1dw_b, const void* b1pw_w, const void* b1pw_b,
-                 void* stream) {
-  // mma_tf32::gemm's warps cover N = c2 up to kWarps * kNTW * 8 = 512
-  if ((stride != 1 && stride != 2) || tile < 1 || c2 % 2 ||
-      round_up(c2, 8) > ynt::mma_tf32::kWarps * ynt::mma_tf32::kNTW * 8)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = Layout(tile, stride, Cin, c2).bytes(c2);
-  if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
-  const BlockWeights wts{
-      static_cast<const float*>(pw1_w),  static_cast<const float*>(pw1_b),
-      static_cast<const float*>(dw_w),   static_cast<const float*>(dw_b),
-      static_cast<const float*>(pw2_w),  static_cast<const float*>(pw2_b),
-      static_cast<const float*>(b1dw_w), static_cast<const float*>(b1dw_b),
-      static_cast<const float*>(b1pw_w), static_cast<const float*>(b1pw_b)};
-  const auto* xt = static_cast<const T*>(x);
-  auto* ot = static_cast<T*>(out);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      stride == 2 ? launch<2, T>(xt, ot, wts, B, H, W, Cin, c2, tile, smem, s)
-                  : launch<1, T>(xt, ot, wts, B, H, W, Cin, c2, tile, smem, s);
-  return static_cast<int>(err);
-}
-
 }  // namespace
 
-// Shared memory of one thread block, in bytes (the same in f32 and bf16).
+// Shared memory of one thread block, in bytes.
 extern "C" size_t shuffle_block_smem_bytes(int tile, int stride, int Cin,
                                            int c2) {
   return Layout(tile, stride, Cin, c2).bytes(c2);
@@ -544,28 +386,32 @@ extern "C" int shuffle_block_tile(int stride, int Cin, int c2, int B, int Ho,
   return best;
 }
 
-// x [B,H,W,Cin] -> out [B,Ho,Wo,2*c2], Ho = (H-1)/stride + 1, both NHWC in
-// f32 (shuffle_block_f32) or bf16 (shuffle_block_bf16); one thread block per
-// (image, tile x tile output pixels). The weights and biases are f32; the
-// pointwise weights are zero-padded to multiples of 8 rows and columns.
+// x [B,H,W,Cin] -> out [B,Ho,Wo,2*c2], Ho = (H-1)/stride + 1, both NHWC f32;
+// one thread block per (image, tile x tile output pixels). The pointwise
+// weights are zero-padded to multiples of 8 rows and columns.
 extern "C" int shuffle_block_f32(
     const void* x, void* out, int B, int H, int W, int Cin, int c2,
     int stride, int tile, const void* pw1_w, const void* pw1_b,
     const void* dw_w, const void* dw_b, const void* pw2_w, const void* pw2_b,
     const void* b1dw_w, const void* b1dw_b, const void* b1pw_w,
     const void* b1pw_b, void* stream) {
-  return launch_block<float>(x, out, B, H, W, Cin, c2, stride, tile, pw1_w,
-                             pw1_b, dw_w, dw_b, pw2_w, pw2_b, b1dw_w, b1dw_b,
-                             b1pw_w, b1pw_b, stream);
-}
-
-extern "C" int shuffle_block_bf16(
-    const void* x, void* out, int B, int H, int W, int Cin, int c2,
-    int stride, int tile, const void* pw1_w, const void* pw1_b,
-    const void* dw_w, const void* dw_b, const void* pw2_w, const void* pw2_b,
-    const void* b1dw_w, const void* b1dw_b, const void* b1pw_w,
-    const void* b1pw_b, void* stream) {
-  return launch_block<bf16>(x, out, B, H, W, Cin, c2, stride, tile, pw1_w,
-                            pw1_b, dw_w, dw_b, pw2_w, pw2_b, b1dw_w, b1dw_b,
-                            b1pw_w, b1pw_b, stream);
+  // mma_tf32::gemm's warps cover N = c2 up to kWarps * kNTW * 8 = 512
+  if ((stride != 1 && stride != 2) || tile < 1 || c2 % 2 ||
+      round_up(c2, 8) > ynt::mma_tf32::kWarps * ynt::mma_tf32::kNTW * 8)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = Layout(tile, stride, Cin, c2).bytes(c2);
+  if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+  const BlockWeights wts{
+      static_cast<const float*>(pw1_w),  static_cast<const float*>(pw1_b),
+      static_cast<const float*>(dw_w),   static_cast<const float*>(dw_b),
+      static_cast<const float*>(pw2_w),  static_cast<const float*>(pw2_b),
+      static_cast<const float*>(b1dw_w), static_cast<const float*>(b1dw_b),
+      static_cast<const float*>(b1pw_w), static_cast<const float*>(b1pw_b)};
+  const auto* xf = static_cast<const float*>(x);
+  auto* of = static_cast<float*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const cudaError_t err =
+      stride == 2 ? launch<2>(xf, of, wts, B, H, W, Cin, c2, tile, smem, s)
+                  : launch<1>(xf, of, wts, B, H, W, Cin, c2, tile, smem, s);
+  return static_cast<int>(err);
 }
