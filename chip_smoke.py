@@ -43,8 +43,23 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
      predict's at bf16 tolerance (match_detections); img/s and forward ms,
      and the forward's device time by kernel. Then the 1.0x artifact
      through make_predict_fn at its bf16 default (the stage kernel at c2
-     up to 232), checked, timed and bounded the same way;
-  6. a JSON line of kernel numbers, the card line, and the result line.
+     up to 232), checked, timed and bounded the same way; then seeded
+     init_yolo_nano trees at 1.5x and 2.0x (stage 4 at c2 = 352 and 488,
+     the bf16 kernel's wide variant) through make_predict_fn, each block
+     against its plain block (ulps, bit-equal share, witness ratio), the
+     launch counts, each stage's kernel and plain ms and bound;
+  6. evaluation through cli.eval.main: 256 synthetic scenes written as a
+     VOC and a COCO set; the port's VOCEvaluator and COCOEvaluator on an
+     oracle predict_fn (AP 1.0); cli.eval on the f32 artifact, its AP
+     equal to the plain-version path's within 1e-6; on the bf16 0.5x
+     artifact, on a CheckpointManager directory of the 1.0x artifact's
+     weights as a train state (--ema), and on one of phase 4's trained
+     state, each at its bf16 default, AP within EVAL_BF16_AP_ATOL of the
+     plain path's, the two artifacts' detections matched to the plain
+     path's (match_detections); the launch counts of each run, and its
+     time in evaluate split into the loader's waits, predict_fn, and the
+     letterbox undo and AP protocol;
+  7. a JSON line of kernel numbers, the card line, and the result line.
 
 A bound is the least time the card could take for a kernel's work: the
 larger of its bytes (each input read once, each output written once) over
@@ -150,6 +165,21 @@ def _smooth(img: np.ndarray) -> np.ndarray:
     return out
 
 
+def _paint(img: np.ndarray, cls: int, x1: int, y1: int, s: int) -> None:
+    """One filled shape of side s at (x1, y1) into an [H, W, 3] image, in
+    its class's colour: a circle, a square or a triangle."""
+    yy, xx = np.mgrid[:img.shape[0], :img.shape[1]]
+    cx, cy = x1 + s // 2, y1 + s // 2
+    if cls == 0:
+        mask = (xx - cx) ** 2 + (yy - cy) ** 2 <= (s // 2) ** 2
+    elif cls == 1:
+        mask = (xx >= x1) & (xx <= x1 + s) & (yy >= y1) & (yy <= y1 + s)
+    else:  # apex (cx, y1), base from (x1, y1+s) to (x1+s, y1+s)
+        half = (yy - y1) / s * (s / 2)
+        mask = (yy >= y1) & (yy <= y1 + s) & (np.abs(xx - cx) <= half)
+    img[mask] = SHAPE_COLOURS[cls]
+
+
 def render_scenes(n: int, size: int, seed: int = 0,
                   max_boxes: Optional[int] = None):
     """n scenes of 1-4 filled shapes on smoothed noise → [n,S,S,3] f32 RGB,
@@ -158,7 +188,6 @@ def render_scenes(n: int, size: int, seed: int = 0,
     [n,max_boxes,4] (normalized corners) and class [n,max_boxes] (−1 pads),
     in the order drawn."""
     rng = np.random.default_rng(seed)
-    yy, xx = np.mgrid[:size, :size]
     out = np.empty((n, size, size, 3), np.float32)
     boxes = np.zeros((n, max_boxes or 0, 4), np.float32)
     labels = np.full((n, max_boxes or 0), -1, np.int32)
@@ -172,16 +201,7 @@ def render_scenes(n: int, size: int, seed: int = 0,
             if max_boxes:
                 boxes[i, j] = np.array([x1, y1, x1 + s + 1, y1 + s + 1]) / size
                 labels[i, j] = cls
-            cx, cy = x1 + s // 2, y1 + s // 2
-            if cls == 0:
-                mask = (xx - cx) ** 2 + (yy - cy) ** 2 <= (s // 2) ** 2
-            elif cls == 1:
-                mask = ((xx >= x1) & (xx <= x1 + s) & (yy >= y1)
-                        & (yy <= y1 + s))
-            else:  # apex (cx, y1), base from (x1, y1+s) to (x1+s, y1+s)
-                half = (yy - y1) / s * (s / 2)
-                mask = (yy >= y1) & (yy <= y1 + s) & (np.abs(xx - cx) <= half)
-            img[mask] = SHAPE_COLOURS[cls]
+            _paint(img, cls, x1, y1, s)
         img = np.rint(img).astype(np.uint8).astype(np.float32) / 255.0
         out[i] = ((img - IMAGE_MEAN) / IMAGE_STD)[..., ::-1]
     return out if max_boxes is None else (out, boxes, labels)
@@ -1177,7 +1197,7 @@ def phase_training():
           f"{parts['forward_loss_ms']:.2f} ms, backward "
           f"{parts['backward_ms']:.2f} ms, update+EMA "
           f"{parts['update_ema_ms']:.2f} ms")
-    return counts, stats_out
+    return counts, stats_out, state
 
 
 def bf16_ulps(got, want) -> tuple:
@@ -1316,21 +1336,29 @@ def phase_fused_stage_bf16(model, images_np):
     return rows
 
 
-def phase_make_predict_fn_bf16(images_np):
-    """The 1.0x artifact's folded f32 tree through make_predict_fn at its
-    defaults (fold, bf16): the bf16 stage kernel at c2 = 58, 116, 232."""
+def phase_make_predict_fn_bf16(images_np, label="1.0x", tree=None,
+                               stats=None, cfg=None):
+    """A JAX-layout tree through make_predict_fn at its defaults (fold,
+    bf16): by default the 1.0x artifact's folded f32 tree (the bf16 stage
+    kernel at c2 = 58, 116, 232), whose detections are also matched to the
+    plain-version predict's; or a tree and its BN stats given, for 1.5x and
+    2.0x (stage 4 at c2 = 352 and 488, the kernel's wide variant). Each
+    block is checked against its plain block; the launches are counted;
+    each stage is timed on the kernel and the plain path and bounded."""
     from yolo_nano_tpu_torch.cli.common import make_predict_fn
     from yolo_nano_tpu_torch.config import config_from_json
     from yolo_nano_tpu_torch.convert import load_npz
-    from yolo_nano_tpu_torch.ops.kernels.fused_stage import (fused_stage,
-                                                             prepare_stage)
+    from yolo_nano_tpu_torch.ops.kernels.fused_stage import (
+        fused_stage, fused_stage_plain, prepare_stage)
 
-    tree, meta = load_npz(NPZ)
-    cfg = config_from_json(meta)
-    print(f"[5] make_predict_fn({os.path.relpath(NPZ, ROOT)} tree, "
-          f"{cfg.backbone}) at its bf16 default, {BATCH} scenes, conf "
-          f"{cfg.conf_thresh}")
-    fn = make_predict_fn(tree, None, cfg, SIZE)
+    source = "a seeded init_yolo_nano tree"
+    if tree is None:
+        tree, meta = load_npz(NPZ)
+        cfg = config_from_json(meta)
+        source = f"{os.path.relpath(NPZ, ROOT)} tree"
+    print(f"[5] make_predict_fn({source}, {cfg.backbone}) at its bf16 "
+          f"default, {BATCH} scenes, conf {cfg.conf_thresh}")
+    fn = make_predict_fn(tree, stats, cfg, SIZE)
     if fn.device.type != "cuda" or fn.dtype != torch.bfloat16:
         raise AssertionError(f"make_predict_fn on {fn.device} {fn.dtype}")
     fn(images_np)  # warm-up
@@ -1338,14 +1366,17 @@ def phase_make_predict_fn_bf16(images_np):
     got = fn(images_np)
     counts = read_counts()
     if counts != want_counts(1, bf16=True):
-        raise AssertionError(f"make_predict_fn launch counts {counts}")
-    with plain_kernels():
-        plain = fn(images_np)
-    heads, cutoffs = kernel_vs_plain(fn, images_np)
-    matches = match_detections(got, plain, cfg.conf_thresh, cfg.nms_thresh,
-                               **BF16_MATCH, cutoffs=cutoffs)
-    matches["heads"] = heads
-    stage_ms, stage_errors = {}, {}
+        raise AssertionError(f"make_predict_fn {label} launch counts {counts}")
+    matches = None
+    if stats is None:
+        with plain_kernels():
+            plain = fn(images_np)
+        heads, cutoffs = kernel_vs_plain(fn, images_np)
+        matches = match_detections(got, plain, cfg.conf_thresh,
+                                   cfg.nms_thresh, **BF16_MATCH,
+                                   cutoffs=cutoffs)
+        matches["heads"] = heads
+    stage_ms, stage_plain_ms, stage_errors = {}, {}, {}
     bound_ms = launch_bound_ms = 0.0
     with torch.inference_mode():
         x = stem_bf16(fn.model, images_np)
@@ -1354,27 +1385,425 @@ def phase_make_predict_fn_bf16(images_np):
             xx = x
             stage_ms[name] = time_ms(lambda: fused_stage(xx, blocks),
                                      queued=True)
+            stage_plain_ms[name] = time_ms(
+                lambda: fused_stage_plain(xx, blocks), queued=True)
             want, stage_errors[name], launches = check_blocks_bf16(
-                f"1.0x {name} {tuple(x.shape)} bf16", x, blocks)
+                f"{label} {name} {tuple(x.shape)} bf16", x, blocks)
             flops, wbytes = _stage_cost(x, blocks)
-            bound_ms += bound(nbytes(x, want) + wbytes, flops,
-                              torch.bfloat16)[0]
+            b_ms = bound(nbytes(x, want) + wbytes, flops, torch.bfloat16)[0]
+            stage_errors[name]["bound_ms"] = b_ms
+            bound_ms += b_ms
             launch_bound_ms += sum(r["bound_ms"] for r in launches)
             x = want
         xb = torch.from_numpy(images_np).cuda().to(torch.bfloat16)
         fwd_ms = time_ms(lambda: fn.model(xb), iters=10)
-    shown = {k: v for k, v in matches.items() if k != "heads"}
-    print(f"  launches {counts}; {int(got[3].sum())} detections match the "
-          f"plain-version predict's: {shown}; forward {fwd_ms:.3f} ms; bf16 "
-          f"fused_stage at 1.0x {sum(stage_ms.values()):.4f} ms per forward "
-          f"({', '.join(f'{k} {v:.4f}' for k, v in stage_ms.items())}), "
-          f"bound {bound_ms:.4f} ms (the launches' bounds summed "
+    shown = ("" if matches is None else
+             f"{int(got[3].sum())} detections match the plain-version "
+             f"predict's: { {k: v for k, v in matches.items() if k != 'heads'} }; ")
+    print(f"  launches {counts}; {shown}forward {fwd_ms:.3f} ms; bf16 "
+          f"fused_stage at {label} {sum(stage_ms.values()):.4f} ms per "
+          f"forward ({', '.join(f'{k} {v:.4f}' for k, v in stage_ms.items())}"
+          f"), plain {sum(stage_plain_ms.values()):.4f} ms, bound "
+          f"{bound_ms:.4f} ms (the launches' bounds summed "
           f"{launch_bound_ms:.4f} ms)")
     return dict(counts=counts, forward_ms=fwd_ms, matches=matches,
                 detections=int(got[3].sum()), fused_stage_ms=stage_ms,
+                fused_stage_plain_ms=stage_plain_ms,
                 fused_stage_bound_ms=bound_ms,
                 fused_stage_launch_bound_ms=launch_bound_ms,
                 fused_stage_errors=stage_errors)
+
+
+def phase_make_predict_fn_wide(images_np):
+    """make_predict_fn on seeded init_yolo_nano trees at 1.5x and 2.0x (the
+    1.0x artifact's COCO configuration, backbone swapped): → {label:
+    phase_make_predict_fn_bf16's dict}."""
+    import dataclasses
+
+    from yolo_nano_tpu_torch.config import config_from_json
+    from yolo_nano_tpu_torch.convert import load_npz, tree_from_named
+    from yolo_nano_tpu_torch.models.yolo_nano import init_yolo_nano
+
+    out = {}
+    for seed, width in enumerate(("1.5x", "2.0x")):
+        cfg = dataclasses.replace(config_from_json(load_npz(NPZ)[1]),
+                                  backbone=width)
+        model = init_yolo_nano(torch.Generator().manual_seed(seed), cfg)
+        params = tree_from_named(dict(model.named_parameters()))
+        stats = tree_from_named(dict(model.named_buffers()))
+        del model
+        out[width] = phase_make_predict_fn_bf16(images_np, width, params,
+                                                stats, cfg)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6: evaluation
+# ---------------------------------------------------------------------------
+
+EVAL_IMAGES = 256
+VOC_SHAPE_NAMES = ("aeroplane", "bicycle", "bird")
+COCO_SHAPE_CATS = (1, 3, 7)  # person, car, train: class indices 0, 2, 6
+# the 80 COCO detection category ids, all declared, as the artifacts were
+# trained (the shapes annotate three of them)
+COCO_80_CAT_IDS = tuple(i for i in range(1, 91) if i not in (
+    12, 26, 29, 30, 45, 66, 68, 69, 71, 83))
+# bf16 evaluation AP, kernel path against plain path (COCO AP, AP50 and
+# AR100, absolute): an empirical limit, the loosest allowed. The two paths'
+# bf16 detections differ, and match_detections holds them to each other
+# one by one. Their leftovers do not bound the AP gap usefully: each moves
+# one class's AP by at most 1/npos, but a run has hundreds of them, nearly
+# all at the conf threshold (0.001) or swapped with a near tie, far below
+# the true positives, where they move AP by almost nothing. Readings on an
+# H100 80GB HBM3 at 700 W, 256 scenes: 1.3e-3 on the 0.5x artifact (1,078
+# leftovers), 6.3e-4 on the checkpoint of the 1.0x artifact's weights
+# (1,649), 1.1e-6 on phase 4's state (AP near 0).
+EVAL_BF16_AP_ATOL = 0.02
+EVAL_F32_AP_ATOL = 1e-6
+
+def _scene(rng):
+    """One scene of 1-3 shapes (the render_scenes classes, 40 to 90 px) on
+    smoothed noise, 240-359 x 280-419 px: (BGR uint8 image, [(class, x1,
+    y1, side)])."""
+    h, w = int(rng.integers(240, 360)), int(rng.integers(280, 420))
+    img = _smooth(rng.integers(60, 190, (h, w, 3)))
+    objs = []
+    for _ in range(int(rng.integers(1, 4))):
+        s = int(rng.integers(40, 90))
+        x1 = int(rng.integers(2, w - s - 2))
+        y1 = int(rng.integers(2, h - s - 2))
+        cls = int(rng.integers(3))
+        _paint(img, cls, x1, y1, s)
+        objs.append((cls, x1, y1, s))
+    return np.rint(img).astype(np.uint8), objs
+
+
+def write_eval_sets(root: str, n: int = EVAL_IMAGES, seed: int = 11):
+    """n scenes (_scene) written twice as JPEGs, a VOC2007 test split and a
+    COCO val2017 split (all 80 categories declared). → (VOCdevkit root,
+    COCO root, boxes per class)."""
+    import cv2
+
+    rng = np.random.default_rng(seed)
+    scenes = [_scene(rng) for _ in range(n)]
+    voc = os.path.join(root, "VOCdevkit", "VOC2007")
+    coco = os.path.join(root, "coco")
+    for d in ("Annotations", "JPEGImages", "ImageSets/Main"):
+        os.makedirs(os.path.join(voc, d), exist_ok=True)
+    os.makedirs(os.path.join(coco, "annotations"), exist_ok=True)
+    os.makedirs(os.path.join(coco, "val2017"), exist_ok=True)
+    names, images, anns = [], [], []
+    per_class = [0, 0, 0]
+    for i, (img, objs) in enumerate(scenes):
+        h, w = img.shape[:2]
+        for c, *_ in objs:
+            per_class[c] += 1
+        name = f"s{i:05d}"
+        names.append(name)
+        cv2.imwrite(os.path.join(voc, "JPEGImages", name + ".jpg"), img)
+        cv2.imwrite(os.path.join(coco, "val2017", f"{i + 1:012}.jpg"), img)
+        xml = "".join(
+            f"<object><name>{VOC_SHAPE_NAMES[c]}</name><difficult>0"
+            f"</difficult><bndbox><xmin>{x}</xmin><ymin>{y}</ymin><xmax>"
+            f"{x + s}</xmax><ymax>{y + s}</ymax></bndbox></object>"
+            for c, x, y, s in objs)
+        with open(os.path.join(voc, "Annotations", name + ".xml"), "w") as f:
+            f.write(f"<annotation><size><width>{w}</width><height>{h}"
+                    f"</height></size>{xml}</annotation>")
+        images.append({"id": i + 1, "file_name": f"{i + 1:012}.jpg",
+                       "width": w, "height": h})
+        for c, x, y, s in objs:
+            anns.append({"id": len(anns) + 1, "image_id": i + 1,
+                         "category_id": COCO_SHAPE_CATS[c],
+                         "bbox": [x, y, s, s], "area": s * s, "iscrowd": 0})
+    with open(os.path.join(voc, "ImageSets", "Main", "test.txt"), "w") as f:
+        f.write("\n".join(names) + "\n")
+    with open(os.path.join(coco, "annotations", "instances_val2017.json"),
+              "w") as f:
+        json.dump({"images": images, "annotations": anns, "categories": [
+            {"id": c, "name": f"cat{c}"} for c in COCO_80_CAT_IDS]}, f)
+    return os.path.dirname(voc), coco, per_class
+
+
+def oracle_predict_fn(dataset, kind: str, img_size: int = SIZE,
+                      max_det: int = 16):
+    """predict_fn that returns each image's ground truth (score 0.9) in the
+    frame letterboxed to img_size, walking the dataset in order, as an
+    evaluator feeds it; kind "voc" (raw XML boxes) or "coco"."""
+    from yolo_nano_tpu_torch.data.transforms import letterbox_geometry
+    from yolo_nano_tpu_torch.data.voc import VOC_CLASSES
+    from yolo_nano_tpu_torch.evaluation.evaluator import parse_rec_raw
+
+    cursor = [0]
+
+    def gts(idx):
+        if kind == "voc":
+            return [(o["bbox"], VOC_CLASSES.index(o["name"])) for o in
+                    parse_rec_raw(dataset._anno_path(dataset.ids[idx]))]
+        return [([x, y, x + bw, y + bh],
+                 dataset.class_ids.index(a["category_id"]))
+                for a in dataset._anns.get(dataset.ids[idx], ())
+                for x, y, bw, bh in [a["bbox"]]]
+
+    def predict(images):
+        b = images.shape[0]
+        boxes = np.zeros((b, max_det, 4), np.float32)
+        scores = np.zeros((b, max_det), np.float32)
+        classes = np.zeros((b, max_det), np.int32)
+        valid = np.zeros((b, max_det), bool)
+        for bi in range(b):
+            idx = cursor[0] + bi
+            if idx >= len(dataset):
+                continue
+            h, w = dataset.image_hw(idx)
+            scale, offset = letterbox_geometry(h, w, img_size)
+            for k, (box, cls) in enumerate(gts(idx)[:max_det]):
+                pct = np.asarray(box, np.float32) / np.array([w, h, w, h],
+                                                             np.float32)
+                boxes[bi, k] = pct * scale + offset
+                scores[bi, k], classes[bi, k], valid[bi, k] = 0.9, cls, True
+        cursor[0] += b
+        return boxes, scores, classes, valid
+
+    return predict
+
+
+@contextlib.contextmanager
+def watch_cli_eval(keep_images: bool = False):
+    """cli.eval.main watched from outside: the predict_fn it builds and the
+    seconds to build it, the seconds spent in it and in waiting for the
+    evaluator's loader (EvalLoader) to hand over a batch, the moment the
+    loader ran out, and each batch's detections (and images, with
+    keep_images). → that dict, filled as main runs."""
+    from yolo_nano_tpu_torch.cli import eval as cli_eval
+    from yolo_nano_tpu_torch.evaluation import evaluator
+
+    w = dict(fn=None, build_s=0.0, predict_s=0.0, loader_wait_s=0.0,
+             loader_end=None, outs=[], images=[])
+    build, loader = cli_eval.build_predict_fn, evaluator.EvalLoader
+
+    def build_watched(args, cfg):
+        t0 = time.perf_counter()
+        w["fn"] = fn = build(args, cfg)
+        w["build_s"] += time.perf_counter() - t0
+
+        def predict(images):
+            t0 = time.perf_counter()
+            out = fn(images)
+            w["predict_s"] += time.perf_counter() - t0
+            w["outs"].append(out)
+            if keep_images:
+                w["images"].append(images)
+            return out
+        return predict
+
+    class TimedLoader(loader):
+        def __iter__(self):
+            batches = super().__iter__()
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(batches)
+                except StopIteration:
+                    w["loader_end"] = time.perf_counter()
+                    return
+                finally:
+                    w["loader_wait_s"] += time.perf_counter() - t0
+                yield batch
+
+    cli_eval.build_predict_fn, evaluator.EvalLoader = build_watched, TimedLoader
+    try:
+        yield w
+    finally:
+        cli_eval.build_predict_fn, evaluator.EvalLoader = build, loader
+
+
+def run_cli_eval(tag: str, argv: list, bf16: bool, batches: int):
+    """cli.eval.main(argv) on the kernel path, timed and its launches
+    counted, then on the plain path with its images kept. → (kernel
+    evaluator, plain evaluator, the two runs' watches, a dict of the
+    launches and the seconds: the whole CLI, building predict_fn, and
+    evaluate's time split into the loader's waits, predict_fn (host copy,
+    forward, postprocess, copy back), the time after the loader's end (the
+    last batch's letterbox undo and the COCO protocol) and the rest
+    (evaluator set-up, the earlier batches' letterbox undo))."""
+    from yolo_nano_tpu_torch.cli import eval as cli_eval
+
+    reset_counts()
+    t0 = time.perf_counter()
+    with watch_cli_eval() as w:
+        got = cli_eval.main(argv)
+    end = time.perf_counter()
+    counts = read_counts()
+    if counts != want_counts(batches, bf16=bf16):
+        raise AssertionError(f"{tag}: launch counts {counts}")
+    with plain_kernels(), watch_cli_eval(keep_images=True) as plain_w:
+        want = cli_eval.main(argv)
+    n = len(got.dataset)
+    eval_s = end - t0 - w["build_s"]
+    after = end - w["loader_end"]
+    t = dict(counts=counts, images=n, cli_s=end - t0, build_s=w["build_s"],
+             eval_s=eval_s, img_per_s=n / eval_s,
+             loader_wait_s=w["loader_wait_s"], predict_s=w["predict_s"],
+             after_loader_s=after,
+             other_s=eval_s - w["loader_wait_s"] - w["predict_s"] - after)
+    print(f"  {tag}: launches {counts}; {t['img_per_s']:.1f} img/s in "
+          f"evaluate ({n} images in {eval_s:.3f} s: loader waits "
+          f"{t['loader_wait_s']:.3f}, predict_fn {t['predict_s']:.3f}, after "
+          f"the loader's end (the last batch's undo, the COCO protocol) "
+          f"{after:.3f}, the rest {t['other_s']:.3f}); the whole CLI "
+          f"{t['cli_s']:.3f} s, of which building predict_fn "
+          f"{t['build_s']:.3f}")
+    return got, want, (w, plain_w), t
+
+
+def ap_close(what, got: dict, want: dict, atol: float) -> float:
+    """COCO AP, AP50 and AR100 of two runs within atol; → the largest
+    gap. A run that scored no detection fails."""
+    if not got or not want:
+        raise AssertionError(f"{what}: no detections to score")
+    gap = max(abs(got[k] - want[k]) for k in ("AP", "AP50", "AR100"))
+    print(f"  {what}: AP {got['AP']:.6f} / {want['AP']:.6f}, AP50 "
+          f"{got['AP50']:.6f} / {want['AP50']:.6f}, AR100 "
+          f"{got['AR100']:.6f} / {want['AR100']:.6f} (kernel / plain path), "
+          f"largest gap {gap:.3g}, tolerance {atol:g}")
+    if not gap <= atol:
+        raise AssertionError(f"{what}: the kernel path's AP is {gap} off the "
+                             f"plain path's (tolerance {atol})")
+    return gap
+
+
+def artifact_train_state(npz: str):
+    """A train state (EMA included) that folds to a folded artifact's
+    weights bit for bit: each conv+BN unit holds the folded weight, its
+    folded bias as the BN's β (a conv bias 0), mean 0, variance 1 and
+    scale √(1 + ε), so that fold's factor is exactly 1. A checkpoint of it
+    scores as the artifact does. → (state, config)."""
+    from yolo_nano_tpu_torch.config import config_from_json
+    from yolo_nano_tpu_torch.convert import load_npz, named_from_tree
+    from yolo_nano_tpu_torch.models.yolo_nano import init_yolo_nano
+    from yolo_nano_tpu_torch.ops.nn import BN_EPS
+    from yolo_nano_tpu_torch.train.state import (TrainState,
+                                                 create_train_state,
+                                                 make_optimizer)
+
+    tree, meta = load_npz(npz)
+    cfg = config_from_json(meta)
+    folded = named_from_tree(tree)
+    init = create_train_state(
+        init_yolo_nano(torch.Generator().manual_seed(0), cfg, device="cpu"),
+        make_optimizer(lambda count: 1e-3))
+    params, used = {}, set()
+    for name, t in init.params.items():
+        unit, attr = name.rsplit(".", 1)
+        if attr == "bn_scale":
+            params[name] = torch.sqrt(torch.ones_like(t) + BN_EPS)
+            continue
+        if attr == "bias" and unit + ".bn_scale" in init.params:
+            params[name] = torch.zeros_like(t)
+            continue
+        key = unit + ".bias" if attr == "bn_bias" else name
+        params[name] = folded[key]
+        used.add(key)
+    if used != set(folded):
+        raise AssertionError(f"{npz} does not map onto the train state")
+    stats = {name: (torch.zeros_like(t) if name.endswith("bn_mean")
+                    else torch.ones_like(t))
+             for name, t in init.stats.items()}
+    copy = lambda d: {k: v.clone() for k, v in d.items()}  # noqa: E731
+    return TrainState(params, stats, init.trace, init.count, init.step,
+                      copy(params), copy(stats)), cfg
+
+
+def phase_eval(state, cfg):
+    """Evaluation on the card through cli.eval.main, on synthetic VOC and
+    COCO sets written to a temporary directory: the port's evaluators on
+    an oracle predict_fn (AP 1.0); then cli.eval on the f32 artifact (the
+    kernel path's AP equal to the plain path's within EVAL_F32_AP_ATOL),
+    on the bf16 0.5x artifact, on a CheckpointManager directory of the 1.0x
+    artifact's weights as a train state with --ema, and on one of phase
+    4's trained state, each at its bf16 default (AP within
+    EVAL_BF16_AP_ATOL; the two artifacts' detections matched to the plain
+    path's by match_detections); each run's launch counts and its time in
+    evaluate by part."""
+    import tempfile
+
+    from yolo_nano_tpu_torch.evaluation.evaluator import (COCOEvaluator,
+                                                          VOCEvaluator)
+    from yolo_nano_tpu_torch.utils.checkpoint import CheckpointManager
+
+    batches = -(-EVAL_IMAGES // BATCH)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        voc_root, coco_root, per_class = write_eval_sets(tmp, EVAL_IMAGES)
+        print(f"[6] evaluation: {EVAL_IMAGES} synthetic scenes as VOC and "
+              f"COCO ({per_class} boxes per class), {SIZE} px, batch {BATCH}")
+        voc = VOCEvaluator(voc_root, SIZE, batch_size=BATCH)
+        voc.evaluate(oracle_predict_fn(voc.dataset, "voc"))
+        present = {c: ap for c, ap in voc.aps.items() if voc.gt_npos[c]}
+        ev = COCOEvaluator(coco_root, SIZE, batch_size=BATCH)
+        ap50, ap = ev.evaluate(oracle_predict_fn(ev.dataset, "coco"))
+        print(f"  oracle predict_fn: VOC AP of the present classes "
+              f"{present}, COCO AP {ap!r}, AP50 {ap50!r}")
+        if len(present) != 3 or any(abs(v - 1) > 1e-6 for v in
+                                    present.values()) or not (
+                abs(ap - 1) <= 1e-6 and abs(ap50 - 1) <= 1e-6):
+            raise AssertionError("the oracle predict_fn does not score 1.0")
+        out["oracle"] = dict(voc_aps=present, coco_ap=ap, coco_ap50=ap50)
+
+        scoring, scoring_cfg = artifact_train_state(NPZ)
+        CheckpointManager(os.path.join(tmp, "artifact")).save(0, scoring)
+        CheckpointManager(os.path.join(tmp, "trained")).save(
+            int(state.step), state)
+        common = ["-d", "coco-val", "--root", coco_root, "--img_size",
+                  str(SIZE), "--batch_size", str(BATCH)]
+        # (key, what, --weight and flags, bf16, match the detections)
+        runs = (
+            ("f32_artifact", "f32 artifact", ["--weight", NPZ], False, False),
+            ("bf16_05x_artifact", "bf16 0.5x artifact",
+             ["--weight", NPZ_05X], True, True),
+            ("bf16_1x_checkpoint_ema", "bf16 checkpoint of the 1.0x "
+             "artifact's weights, --ema",
+             ["--weight", os.path.join(tmp, "artifact"), "--backbone",
+              scoring_cfg.backbone, "--ema"], True, True),
+            # phase 4's 30 steps score AP near 0 on these scenes, and its
+            # detections (degenerate boxes among them) are not matched:
+            # this run checks the CLI on a trained state and its launches
+            ("bf16_phase4_checkpoint", "bf16 checkpoint of phase 4's state",
+             ["--weight", os.path.join(tmp, "trained"), "--backbone",
+              cfg.backbone], True, False))
+        for key, what, flags, bf16, match in runs:
+            got, want, (w, plain_w), t = run_cli_eval(
+                what, common + flags, bf16, batches)
+            gap = ap_close(what, got.stats, want.stats,
+                           EVAL_BF16_AP_ATOL if bf16 else EVAL_F32_AP_ATOL)
+            out[key] = dict(t, ap_gap=gap, stats=got.stats,
+                            plain_stats=want.stats)
+            if not match:
+                continue
+            fn, matches = plain_w["fn"], {}
+            for images, got_b, want_b in zip(plain_w["images"], w["outs"],
+                                             plain_w["outs"]):
+                cutoffs = kernel_vs_plain(fn, images)[1]
+                for k, v in match_detections(
+                        got_b, want_b, fn.cfg.conf_thresh, fn.cfg.nms_thresh,
+                        cutoffs=cutoffs, **BF16_MATCH).items():
+                    matches[k] = (max(matches.get(k, 0.0), v)
+                                  if k == "score_rdiff"
+                                  else matches.get(k, 0) + v)
+            print(f"  {what}: detections against the plain path's: "
+                  f"{matches}")
+            out[key]["matches"] = matches
+        # the checkpoint is the trained model: it scores near the artifact
+        ckpt_ap = out["bf16_1x_checkpoint_ema"]["plain_stats"]["AP"]
+        artifact_ap = out["f32_artifact"]["plain_stats"]["AP"]
+        print(f"  the 1.0x artifact's weights: AP {artifact_ap:.6f} as the "
+              f"f32 artifact, {ckpt_ap:.6f} as a bf16 checkpoint")
+        if not ckpt_ap >= 0.5 * artifact_ap:
+            raise AssertionError("the checkpoint of the 1.0x artifact's "
+                                 f"weights scores AP {ckpt_ap}, under half "
+                                 f"the artifact's {artifact_ap}")
+    return out
 
 
 def kernel_row(name, source, rows, per_fwd, launches, replaces):
@@ -1434,7 +1863,7 @@ def main():
         dw_rows = phase_fused_dw_pw(model)
     stage_rows = phase_fused_stage(model, torch.from_numpy(images_np).cuda())
     counts, stats = phase_main_path(images_np)
-    train_counts, train_stats = phase_training()
+    train_counts, train_stats, train_state = phase_training()
     from yolo_nano_tpu_torch.convert import load_model
 
     model05 = load_model(NPZ_05X)[0].cuda()
@@ -1444,6 +1873,11 @@ def main():
     stage_rows05 = phase_fused_stage_bf16(model05, images_np)
     counts05, stats05 = phase_main_path(images_np, NPZ_05X, phase="[5]")
     stats1x_bf16 = phase_make_predict_fn_bf16(images_np)
+    stats_wide = phase_make_predict_fn_wide(images_np)
+    from yolo_nano_tpu_torch.config import config_from_json
+    from yolo_nano_tpu_torch.convert import load_npz
+
+    eval_stats = phase_eval(train_state, config_from_json(load_npz(NPZ)[1]))
     print(json.dumps({"main_path": stats, "batch": BATCH, "size": SIZE,
                       "training": train_stats,
                       "fused_dw_pw_per_shape": dw_rows,
@@ -1451,7 +1885,9 @@ def main():
                       "main_path_bf16_05x": stats05,
                       "fused_dw_pw_bf16_05x_per_shape": dw_rows05,
                       "fused_stage_bf16_05x_per_stage": stage_rows05,
-                      "make_predict_fn_bf16_1x": stats1x_bf16}))
+                      "make_predict_fn_bf16_1x": stats1x_bf16,
+                      "make_predict_fn_bf16_wide": stats_wide,
+                      "eval": eval_stats}))
     # the main path runs the heads in f32 with leaky/leaky
     main_dw = [r for r in dw_rows if r["dtype"] == "float32"
                and r["acts"] == "leaky/leaky"]
@@ -1470,9 +1906,21 @@ def main():
                    counts05["fused_stage_bf16"], stage_tpu)]
     for row in kernels[:2]:  # the training path's fold→predict, alone
         row["launches_train_fold_predict"] = train_counts[row["name"]]
-    for row in kernels[2:]:  # make_predict_fn on the 1.0x tree, alone
+    for row in kernels[2:]:  # make_predict_fn on each tree, alone
         row["launches_make_predict_fn_1x"] = stats1x_bf16["counts"][
             row["name"]]
+        for width, st in stats_wide.items():
+            key = width.replace(".0x", "x").replace(".", "_")  # 1_5x, 2x
+            row[f"launches_make_predict_fn_{key}"] = st["counts"][row["name"]]
+            if row["name"] == "fused_stage_bf16":
+                row[f"ms_{key}"] = sum(st["fused_stage_ms"].values())
+                row[f"plain_ms_{key}"] = sum(
+                    st["fused_stage_plain_ms"].values())
+                row[f"bound_ms_{key}"] = st["fused_stage_bound_ms"]
+    for row in kernels:  # the evaluation runs of phase 6, alone
+        tag = ("bf16_05x_artifact" if row["name"].endswith("_bf16")
+               else "f32_artifact")
+        row["launches_eval"] = eval_stats[tag]["counts"][row["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

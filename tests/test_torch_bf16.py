@@ -123,6 +123,80 @@ def test_fused_stage_plain_bf16_matches_pallas(model_05x):
         x = want
 
 
+def _random_folded_stage(rng, cin, c2, n_blocks):
+    """A folded stage as a JAX-layout list of blocks (HWIO weights), every
+    weight and bias a bf16 value held in f32, as a cast model holds them."""
+    import ml_dtypes
+
+    def unit(k, i, o, groups=1):
+        w = rng.normal(0, 1 / np.sqrt(i // groups * k * k),
+                       (k, k, i // groups, o))
+        b = rng.normal(0, 0.1, o)
+        return {key: np.asarray(a, np.float32).astype(ml_dtypes.bfloat16
+                                                      ).astype(np.float32)
+                for key, a in (("w", w), ("b", b))}
+
+    blocks = []
+    for i in range(n_blocks):
+        k1 = cin if i == 0 else c2
+        blk = {"branch2": {"pw1": unit(1, k1, c2),
+                           "dw": unit(3, c2, c2, groups=c2),
+                           "pw2": unit(1, c2, c2)}}
+        if i == 0:
+            blk["branch1"] = {"dw": unit(3, cin, cin, groups=cin),
+                              "pw": unit(1, cin, c2)}
+        blocks.append(blk)
+    return blocks
+
+
+@pytest.mark.parametrize("width,cin,c2", [("1.5x", 352, 352),
+                                          ("2.0x", 488, 488)])
+def test_fused_stage_plain_bf16_wide_matches_pallas(width, cin, c2):
+    """Stage 4 at the widths the bf16 kernel's wide variant runs (1.5x: c2 =
+    352, 2.0x: c2 = 488; four blocks, random bf16 weights), batch 1, on an
+    8x8 input: the port's bf16 plain version against the Pallas kernel in
+    interpret mode, within one bf16 ulp of the stage's max|ref| and 95% of
+    the elements bit-equal, as at 0.5x."""
+    from yolo_nano_tpu.ops.pallas.fused_stage import fused_stage, prepare_stage
+
+    from torch import nn
+
+    from yolo_nano_tpu_torch.convert import conv_unit
+    from yolo_nano_tpu_torch.models.shufflenetv2 import (ShuffleBlock,
+                                                         ShuffleStage)
+    from yolo_nano_tpu_torch.utils.fuse_bn import cast_f32_to_bf16
+
+    rng = np.random.default_rng(11)
+    tree = _random_folded_stage(rng, cin, c2, 4)
+    x = np.maximum(rng.normal(size=(1, 8, 8, cin)), 0).astype(np.float32)
+    xb = jnp.asarray(x, jnp.bfloat16)
+    want = np.asarray(fused_stage(xb, prepare_stage(tree), interpret=True)
+                      ).astype(np.float32)
+    blocks = []
+    for i, blk in enumerate(tree):
+        s = 2 if i == 0 else 1
+        b2 = nn.ModuleDict({"pw1": conv_unit(blk["branch2"]["pw1"],
+                                             act="relu"),
+                            "dw": conv_unit(blk["branch2"]["dw"], stride=s),
+                            "pw2": conv_unit(blk["branch2"]["pw2"],
+                                             act="relu")})
+        b1 = None if i else nn.ModuleDict({
+            "dw": conv_unit(blk["branch1"]["dw"], stride=2),
+            "pw": conv_unit(blk["branch1"]["pw"], act="relu")})
+        blocks.append(ShuffleBlock(b2, b1))
+    stage = cast_f32_to_bf16(ShuffleStage(blocks))
+    got = nhwc(tfs.fused_stage(nchw(np.asarray(xb, np.float32),
+                                    torch.bfloat16),
+                               tfs.prepare_stage(stage)))
+    assert got.shape == want.shape == (1, 4, 4, 2 * c2)
+    top_ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+    equal = float((got == want).mean())
+    print(f"{width}: {equal:.5f} bit-equal, max |diff| "
+          f"{np.abs(got - want).max() / top_ulp:.3g} ulps of max|ref|")
+    assert np.abs(got - want).max() <= top_ulp, width
+    assert equal >= STAGE_BIT_EQUAL, (width, equal)
+
+
 def test_fused_stage_bf16_cpu_dispatch(model_05x):
     """A bf16 CPU tensor takes the plain version (and launches nothing);
     f16 and f64 raise."""

@@ -297,6 +297,8 @@ def _bf16_ulps(got, want):
     (24, 116, 4, (104, 104)),   # 1.0x stage2: c2 = 58, no 16-byte paths
     (116, 232, 8, (52, 52)),    # 1.0x stage3
     (232, 464, 4, (26, 26)),    # 1.0x stage4, c2 = 232
+    (352, 704, 4, (26, 26)),    # 1.5x stage4, c2 = 352 (the wide variant)
+    (488, 976, 4, (26, 26)),    # 2.0x stage4, c2 = 488
     (24, 48, 2, (9, 14)),       # ragged tiles, odd input to stride 2
 ])
 def test_fused_stage_bf16_kernel_matches_plain(dev, cin, cout, n, hw,
@@ -348,6 +350,10 @@ def test_fused_stage_bf16_kernel_matches_plain(dev, cin, cout, n, hw,
     (24, 116, 2, (152, 152)),   # 1.0x stage inputs at 608 px
     (116, 232, 2, (76, 76)),
     (232, 464, 2, (38, 38)),
+    (352, 704, 2, (20, 20)),    # 1.5x and 2.0x stage-4 inputs at 320 px
+    (488, 976, 2, (20, 20)),
+    (352, 704, 2, (38, 38)),    # and at 608 px
+    (488, 976, 2, (38, 38)),
 ])
 def test_fused_stage_bf16_at_ragged_sizes(dev, cin, cout, n, hw):
     """Stage inputs of the multi-scale sizes 320 and 608 px, whose output
@@ -454,6 +460,30 @@ def test_block_tiles_at_half_width(dev):
         128 * 248 + 25 * 248 + 32 * 248 + 2 * 232 * 40)
     assert smem_bytes(6, 2, 232, 232, bf16) <= smem_max < smem_bytes(
         7, 2, 232, 232, bf16)
+
+
+@pytest.mark.parametrize("size", [320, 416, 608])
+def test_block_tiles_at_wide_stage4(dev, size):
+    """The bf16 tile rule above c2 = 256 (stage 4 at 1.5x and 2.0x, the
+    kernel's wide variant, 1 block an SM, weights streamed) returns a side
+    whose buffers fit for both strides at 416 px and the TTA sizes 320 and
+    608, batch 32; at c2 = 488 stride 2 only sides up to 3 fit."""
+    from yolo_nano_tpu_torch.ops.kernels.fused_stage import (_lib,
+                                                             block_tile,
+                                                             smem_bytes)
+
+    bf16 = torch.bfloat16
+    lib = _lib(bf16)
+    side = size // 32
+    for stride, cin, c2 in ((2, 352, 352), (1, 704, 352), (2, 488, 488),
+                            (1, 976, 488)):
+        tile = block_tile(stride, cin, c2, 32, side, side, bf16)
+        assert 1 <= tile <= 16
+        assert smem_bytes(tile, stride, cin, c2, bf16) <= 227 * 1024
+        assert lib.shuffle_block_bf16_blocks_per_sm(tile, stride, cin,
+                                                    c2) >= 1
+    assert smem_bytes(3, 2, 488, 488, bf16) <= 227 * 1024 < smem_bytes(
+        4, 2, 488, 488, bf16)
 
 
 def test_block_tiles_at_main_path_widths(dev):

@@ -39,6 +39,18 @@ def test_port_imports_no_jax(path):
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
 
 
+def test_port_files_cover_the_eval_slice():
+    """The walk reaches the port's own copies of the data readers, the
+    evaluators and the eval CLI (numpy/cv2 modules of the JAX package that
+    the port may not import)."""
+    got = {os.path.relpath(p, PORT) for p in _port_files()}
+    for name in ("data/transforms.py", "data/mosaic.py", "data/base.py",
+                 "data/voc.py", "data/coco.py", "data/loader.py",
+                 "evaluation/voc_eval.py", "evaluation/coco_eval.py",
+                 "evaluation/evaluator.py", "cli/common.py", "cli/eval.py"):
+        assert name in got, name
+
+
 def test_forbidden_rule():
     assert _forbidden("yolo_nano_tpu.config")
     assert _forbidden("jax.numpy")

@@ -96,17 +96,23 @@ def test_stage_bound_reads_the_same_work(backbones, width):
 
 
 def test_launch_block_refuses_bf16_c2_above_256():
-    """The bf16 kernel's 8 warps cover N = c2 up to 256 (the f32 kernel's
-    16 warps 512): the wrapper raises on a wider bf16 block before any
-    launch, and still takes such an f32 block to its own checks."""
-    for c2 in (258, 264):
-        x = torch.zeros(1, 2 * c2, 4, 4, dtype=torch.bfloat16)
-        with pytest.raises(ValueError, match="even c2 up to 256"):
-            tfs._launch_block(None, x, {"stride": 1,
-                                        "pw1_w": torch.zeros(c2, c2)})
-    with pytest.raises(ValueError, match="Cin = 2"):
-        tfs._launch_block(None, torch.zeros(1, 500, 4, 4),
-                          {"stride": 1, "pw1_w": torch.zeros(258, 258)})
+    """The bf16 kernel's 8 warps cover N = c2 up to 512 (4 n8 tiles a warp
+    up to 256, 8 above), as the f32 kernel's 16 warps do: the wrapper
+    raises on a wider or odd block of either dtype before any launch, and
+    takes the widths of stage 4 at 1.5x and 2.0x (c2 = 352, 488) to its
+    next check (the bf16 kernel's narrow split alone stopped at 256)."""
+    assert tfs.C2_MAX == {torch.float32: 512, torch.bfloat16: 512}
+    for dtype in (torch.bfloat16, torch.float32):
+        for c2 in (514, 520, 351):
+            x = torch.zeros(1, 2 * c2, 4, 4, dtype=dtype)
+            with pytest.raises(ValueError, match="even c2 up to 512"):
+                tfs._launch_block(None, x, {"stride": 1,
+                                            "pw1_w": torch.zeros(c2, c2)})
+        for c2 in (258, 352, 488, 512):
+            with pytest.raises(ValueError, match="Cin = 2"):
+                tfs._launch_block(None, torch.zeros(1, 2 * c2 - 2, 4, 4,
+                                                    dtype=dtype),
+                                  {"stride": 1, "pw1_w": torch.zeros(c2, c2)})
 
 
 def _bf16_nearest_even(v: torch.Tensor) -> torch.Tensor:

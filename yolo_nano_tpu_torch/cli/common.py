@@ -1,12 +1,34 @@
-"""Shared CLI plumbing: `make_predict_fn`, which makes a batched predict
-function (the JAX package's `cli/common.py::make_predict_fn`, its
-single-device branch)."""
+"""Shared CLI plumbing: `build_config`, the per-dataset model config, and
+`make_predict_fn`, which makes a batched predict function (the JAX
+package's `cli/common.py`; of `make_predict_fn` its single-device
+branch)."""
 
 from __future__ import annotations
 
 from typing import Callable
 
-from yolo_nano_tpu_torch.config import YoloNanoConfig
+from yolo_nano_tpu_torch.config import (
+    MULTI_ANCHOR_SIZE,
+    MULTI_ANCHOR_SIZE_COCO,
+    YoloNanoConfig,
+)
+
+
+def build_config(dataset: str, backbone: str = "1.0x",
+                 conf_thresh: float = 0.001, nms_thresh: float = 0.50,
+                 diou_nms: bool = False, **overrides) -> YoloNanoConfig:
+    """One source of truth for the per-dataset model config: VOC's 20
+    classes and anchors, or COCO's 80 ("coco", "coco-val", "coco-test"),
+    with the thresholds and any other config field given."""
+    if dataset == "voc":
+        base = dict(num_classes=20, anchors=MULTI_ANCHOR_SIZE)
+    elif dataset.startswith("coco"):
+        base = dict(num_classes=80, anchors=MULTI_ANCHOR_SIZE_COCO)
+    else:
+        raise ValueError(f"unknown dataset {dataset!r}")
+    base.update(backbone=backbone, conf_thresh=conf_thresh,
+                nms_thresh=nms_thresh, diou_nms=diou_nms, **overrides)
+    return YoloNanoConfig(**base)
 
 
 def make_predict_fn(params, stats, cfg: YoloNanoConfig, input_size: int,

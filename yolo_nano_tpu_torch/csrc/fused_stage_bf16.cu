@@ -46,7 +46,14 @@
 //   - blocks are 8 warps with __launch_bounds__ for 2 blocks an SM, so that
 //     one block's fill, depthwise and stores overlap another's products;
 //     the tile rule (shuffle_block_bf16_tile) weighs the tile's work against
-//     the waves its blocks take at the occupancy the runtime reports.
+//     the waves its blocks take at the occupancy the runtime reports;
+//   - above c2 = 256 (stage 4 at 1.5x and 2.0x: c2 = 352, 488) a warp owns
+//     up to 8 n8 tiles of every product instead of 4 (mma_bf16.cuh's NTW),
+//     so that each round of rows still ends with all of N in registers
+//     before its epilogue, and pw1 can still write over its own A rows.
+//     That doubles the accumulators (64 floats a thread), so this variant
+//     is built for 1 block an SM, and its weights always stream. It takes
+//     an even c2 up to 512; its speed is not tuned.
 // What holds it back (PERF.md, tools/probe_dw_pw.py's phase probes): a
 // block is a chain of barrier-separated phases (copies, region wait, pw1,
 // depthwise, pw2) of a few thousand cycles each, and at 0.5x stages 3 and 4
@@ -138,7 +145,8 @@ struct Layout {
     d = round_up(P, 16) * ldd;
     const int w_res = mb::resident_elems(k1, c2) + mb::resident_elems(c2, c2) +
                       (stride == 2 ? mb::resident_elems(cin, c2) : 0);
-    resident = 2 * w_res <= kResidentBytes;
+    // the wide variant (c2 > 256) never fits: its weights always stream
+    resident = mb::ntw_for(c2) == mb::kNTW && 2 * w_res <= kResidentBytes;
     w = resident ? w_res : mb::stream_elems(c2);
   }
   __host__ __device__ size_t bytes() const {
@@ -272,8 +280,8 @@ __device__ __forceinline__ void copy_floats(float* dst, const float* src,
     mb::cp_async_zfill<4>(dst + i, src + i, true);
 }
 
-template <int STRIDE, bool RESIDENT>
-__global__ void __launch_bounds__(kThreads, 2)
+template <int STRIDE, bool RESIDENT, int NTW>
+__global__ void __launch_bounds__(kThreads, NTW == mb::kNTW ? 2 : 1)
     shuffle_block_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
                          BlockWeights wts, int H, int W, int Cin, int Ho,
                          int Wo, int c2, int tile, int tiles_x, int v_region,
@@ -362,21 +370,21 @@ __global__ void __launch_bounds__(kThreads, 2)
     depthwise<2>(X, ldx, R, tile, Cin, par + pr.b1dw_w, par + pr.b1dw_b, D,
                  lay.ldd);
     __syncthreads();
-    mb::gemm<RESIDENT, false>(P, Cin, c2, D, lay.ldd, w_b1pw, wsm, true,
-                              par + pr.b1pw_b, opix,
-                              [&](int m, int, int o, float v0, float v1) {
-                                *reinterpret_cast<uint32_t*>(
-                                    L + m * lay.ldl + o) = relu_pair(v0, v1);
-                              });
+    mb::gemm<RESIDENT, false, NTW>(
+        P, Cin, c2, D, lay.ldd, w_b1pw, wsm, true, par + pr.b1pw_b, opix,
+        [&](int m, int, int o, float v0, float v1) {
+          *reinterpret_cast<uint32_t*>(L + m * lay.ldl + o) =
+              relu_pair(v0, v1);
+        });
   }
   // 3. pw1 + relu over the region, in place; 0 outside the image (the
   //    depthwise's zero pad)
-  mb::gemm<RESIDENT, true>(R * R, k1, c2, X, ldx, w_pw1, wsm, STRIDE == 1,
-                           par + pr.pw1_b, offs,
-                           [&](int m, int in, int o, float v0, float v1) {
-                             *reinterpret_cast<uint32_t*>(X + m * ldx + o) =
-                                 in >= 0 ? relu_pair(v0, v1) : 0u;
-                           });
+  mb::gemm<RESIDENT, true, NTW>(
+      R * R, k1, c2, X, ldx, w_pw1, wsm, STRIDE == 1, par + pr.pw1_b, offs,
+      [&](int m, int in, int o, float v0, float v1) {
+        *reinterpret_cast<uint32_t*>(X + m * ldx + o) =
+            in >= 0 ? relu_pair(v0, v1) : 0u;
+      });
   __syncthreads();
   if (!RESIDENT) mb::prefetch(c2, c2, wts.pw2_w, wsm);
   // 4. depthwise 3x3 (+ bias) at the tile's outputs, X -> D
@@ -386,7 +394,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   __syncthreads();
   // 5. pw2 + relu; each output pair (L[o], pw2[o], L[o+1], pw2[o+1]) in one
   //    8-byte store
-  mb::gemm<RESIDENT, false>(
+  mb::gemm<RESIDENT, false, NTW>(
       P, c2, c2, D, lay.ldd, w_pw2, wsm, true, par + pr.pw2_b, opix,
       [&](int m, int q, int o, float v0, float v1) {
         if (q < 0) return;
@@ -398,7 +406,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       });
 }
 
-template <int STRIDE, bool RESIDENT>
+template <int STRIDE, bool RESIDENT, int NTW>
 cudaError_t launch(const bf16* x, bf16* out, const BlockWeights& wts, int B,
                    int H, int W, int Cin, int c2, int tile, size_t smem,
                    int v_region, int v_left, cudaStream_t s) {
@@ -407,29 +415,38 @@ cudaError_t launch(const bf16* x, bf16* out, const BlockWeights& wts, int B,
   const int tiles_x = (Wo + tile - 1) / tile;
   const int tiles_y = (Ho + tile - 1) / tile;
   const cudaError_t err = cudaFuncSetAttribute(
-      shuffle_block_kernel<STRIDE, RESIDENT>,
+      shuffle_block_kernel<STRIDE, RESIDENT, NTW>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  shuffle_block_kernel<STRIDE, RESIDENT>
+  shuffle_block_kernel<STRIDE, RESIDENT, NTW>
       <<<dim3(tiles_x * tiles_y, B), kThreads, smem, s>>>(
           x, out, wts, H, W, Cin, Ho, Wo, c2, tile, tiles_x, v_region,
           v_left);
   return cudaGetLastError();
 }
 
+// The kernel of a launch: its stride, resident weights or streamed, and
+// the n8 tiles a warp owns (mb::ntw_for(c2)). The wide variant is built
+// streamed only (Layout::resident).
+template <int STRIDE, int NTW>
+const void* kernel_of(bool resident) {
+  if constexpr (NTW == mb::kNTW)
+    if (resident)
+      return reinterpret_cast<const void*>(
+          shuffle_block_kernel<STRIDE, true, NTW>);
+  return reinterpret_cast<const void*>(
+      shuffle_block_kernel<STRIDE, false, NTW>);
+}
+
 // Blocks of this launch's kernel that fit on one SM at once, as the runtime
 // reports it (registers and shared memory); 0 on an error.
-int blocks_per_sm(int stride, bool resident, size_t smem) {
+int blocks_per_sm(int stride, bool resident, int c2, size_t smem) {
+  const bool wide = mb::ntw_for(c2) != mb::kNTW;
   const void* fn =
-      stride == 2
-          ? (resident ? reinterpret_cast<const void*>(
-                            shuffle_block_kernel<2, true>)
-                      : reinterpret_cast<const void*>(
-                            shuffle_block_kernel<2, false>))
-          : (resident ? reinterpret_cast<const void*>(
-                            shuffle_block_kernel<1, true>)
-                      : reinterpret_cast<const void*>(
-                            shuffle_block_kernel<1, false>));
+      stride == 2 ? (wide ? kernel_of<2, mb::kNTWWide>(resident)
+                          : kernel_of<2, mb::kNTW>(resident))
+                  : (wide ? kernel_of<1, mb::kNTWWide>(resident)
+                          : kernel_of<1, mb::kNTW>(resident));
   if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(kSmemMax)) != cudaSuccess)
     return 0;
@@ -455,7 +472,7 @@ constexpr double kShare = 0.5;
 
 // k-steps of one warp in a product of an m x n output and depth k.
 int gemm_steps(int m, int k, int n) {
-  const int wn = mb::warps_n(n);
+  const int wn = mb::warps_n(n, mb::ntw_for(n));
   const int ntw = (round_up(n, 8) / 8 + wn - 1) / wn;
   const int per_round = mb::kWarps / wn * mb::kWM;
   const int rounds = ((m + 15) / 16 + per_round - 1) / per_round;
@@ -493,7 +510,7 @@ extern "C" int shuffle_block_bf16_blocks_per_sm(int tile, int stride, int Cin,
                                                 int c2) {
   const Layout lay(tile, stride, Cin, c2);
   if (lay.bytes() > kSmemMax) return 0;
-  return blocks_per_sm(stride, lay.resident, lay.bytes());
+  return blocks_per_sm(stride, lay.resident, c2, lay.bytes());
 }
 
 // Output tile side of one block launch: of the sides up to 16 whose shared
@@ -550,18 +567,25 @@ extern "C" int shuffle_block_bf16(
   const int v_region = width(xt + (stride == 2 ? 0 : c2), lay.k1);
   const int v_left = width(xt, c2);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (stride == 2)
-    err = lay.resident
-              ? launch<2, true>(xt, ot, wts, B, H, W, Cin, c2, tile, smem,
-                                v_region, v_left, s)
-              : launch<2, false>(xt, ot, wts, B, H, W, Cin, c2, tile, smem,
+  // the kernel of this stride, warp width and weights; the wide variant
+  // is built streamed only (Layout::resident)
+  auto go = [&](auto stride_c, auto ntw) {
+    constexpr int S = decltype(stride_c)::value;
+    constexpr int NTW = decltype(ntw)::value;
+    if constexpr (NTW == mb::kNTW)
+      if (lay.resident)
+        return launch<S, true, NTW>(xt, ot, wts, B, H, W, Cin, c2, tile,
+                                    smem, v_region, v_left, s);
+    return launch<S, false, NTW>(xt, ot, wts, B, H, W, Cin, c2, tile, smem,
                                  v_region, v_left, s);
-  else
-    err = lay.resident
-              ? launch<1, true>(xt, ot, wts, B, H, W, Cin, c2, tile, smem,
-                                v_region, v_left, s)
-              : launch<1, false>(xt, ot, wts, B, H, W, Cin, c2, tile, smem,
-                                 v_region, v_left, s);
+  };
+  using S1 = std::integral_constant<int, 1>;
+  using S2 = std::integral_constant<int, 2>;
+  using Narrow = std::integral_constant<int, mb::kNTW>;
+  using Wide = std::integral_constant<int, mb::kNTWWide>;
+  const bool wide = mb::ntw_for(c2) != mb::kNTW;
+  const cudaError_t err =
+      stride == 2 ? (wide ? go(S2(), Wide()) : go(S2(), Narrow()))
+                  : (wide ? go(S1(), Wide()) : go(S1(), Narrow()));
   return static_cast<int>(err);
 }

@@ -34,8 +34,12 @@
 // (chip_smoke.py phase 5 holds and prints the shares).
 //
 // Work split: the block's kWarps warps form warps_m x warps_n; a warp owns
-// kWM m16 tiles x up to kNTW n8 tiles, so N is at most kWarps * kNTW * 8 =
-// 256. One round covers warps_m * kWM * 16 rows and all of N.
+// kWM m16 tiles x up to NTW n8 tiles (a template argument: kNTW, or
+// kNTWWide where N is above kWarps * kNTW * 8 = 256), so N is at most
+// kWarps * kNTWWide * 8 = 512. One round covers warps_m * kWM * 16 rows and
+// all of N: every output column of a round's rows is in registers before
+// the round's epilogue, which an in-place product needs (a second pass
+// over N would read rows the first pass's epilogue overwrote).
 #pragma once
 
 #include <cstdint>
@@ -48,9 +52,15 @@ namespace mma_bf16 {
 
 constexpr int kWarps = 8;  // warps of a block
 constexpr int kWM = 2;     // m16 tiles of a warp
-constexpr int kNTW = 4;    // n8 tiles of a warp, at most
+constexpr int kNTW = 4;    // n8 tiles of a warp, at most, for N <= 256
+constexpr int kNTWWide = 8;  // the same for 256 < N <= 512
 constexpr int kKC = 32;    // weight columns (K) of one streamed chunk
-constexpr int kNMax = kWarps * kNTW * 8;
+constexpr int kNMax = kWarps * kNTWWide * 8;
+
+// The n8 tiles a warp may own in a product of N columns.
+__host__ __device__ constexpr int ntw_for(int n) {
+  return n <= kWarps * kNTW * 8 ? kNTW : kNTWWide;
+}
 
 using bf16 = __nv_bfloat16;
 
@@ -77,12 +87,12 @@ __host__ __device__ constexpr int stream_elems(int n) {
   return 2 * round_up(n, 8) * w_stride(kKC);
 }
 
-// Warps along N: the fewest (a power of 2) that leave each at most kNTW n8
+// Warps along N: the fewest (a power of 2) that leave each at most ntw n8
 // tiles.
-__host__ __device__ inline int warps_n(int n) {
+__host__ __device__ inline int warps_n(int n, int ntw) {
   const int nt = round_up(n, 8) / 8;
   int w = 1;
-  while (w < kWarps && (nt + w - 1) / w > kNTW) w *= 2;
+  while (w < kWarps && (nt + w - 1) / w > ntw) w *= 2;
   return w;
 }
 
@@ -160,8 +170,8 @@ __device__ __forceinline__ void prefetch(int K, int N, const bf16* Wt,
   cp_async_commit();
 }
 
-// The product described at the top of this file; every thread of the block
-// calls it. RESIDENT: W is the shared-memory copy of Wt (w_stride(kp)), the
+// The product described at the top of this file, N at most kWarps * NTW *
+// 8; every thread of the block calls it. RESIDENT: W is the shared-memory copy of Wt (w_stride(kp)), the
 // caller has synchronised after writing A and W, and the product neither
 // waits nor synchronises (but for IN_PLACE); a caller that reads what epi
 // wrote to shared memory synchronises first. Streamed: W is Wt in device
@@ -171,7 +181,7 @@ __device__ __forceinline__ void prefetch(int K, int N, const bf16* Wt,
 // IN_PLACE: epi may overwrite the rows of A it is called for; each round's
 // epilogue then runs after a barrier that follows the round's last read of
 // A (the rounds read disjoint rows).
-template <bool RESIDENT, bool IN_PLACE, typename Epi>
+template <bool RESIDENT, bool IN_PLACE, int NTW, typename Epi>
 __device__ __forceinline__ void gemm(int M, int K, int N, const bf16* A,
                                      int lda, const bf16* __restrict__ W,
                                      bf16* wbuf, bool prefetched,
@@ -179,9 +189,9 @@ __device__ __forceinline__ void gemm(int M, int K, int N, const bf16* A,
                                      Epi epi) {
   const int kp = round_up(K, 16);
   const int np = round_up(N, 8);
-  const int wn_count = warps_n(N);
+  const int wn_count = warps_n(N, NTW);
   const int nt_all = np / 8;
-  const int ntw = (nt_all + wn_count - 1) / wn_count;  // <= kNTW
+  const int ntw = (nt_all + wn_count - 1) / wn_count;  // <= NTW
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   const int g = lane / 4;  // groupID of the fragment layouts
@@ -197,9 +207,9 @@ __device__ __forceinline__ void gemm(int M, int K, int N, const bf16* A,
   // this lane's ldmatrix row and column within an m16 x k16 tile
   const int a_row = lane % 16;
   const int a_col = lane / 16 * 8;
-  float bias_r[kNTW][2];
+  float bias_r[NTW][2];
 #pragma unroll
-  for (int j = 0; j < kNTW; ++j) {
+  for (int j = 0; j < NTW; ++j) {
     const int n = (nt0 + j) * 8 + 2 * t;
     const bool in = j < n_tiles && n < N;
     bias_r[j][0] = in ? bias[n] : 0.f;
@@ -208,11 +218,11 @@ __device__ __forceinline__ void gemm(int M, int K, int N, const bf16* A,
 
   for (int mt_first = 0; mt_first < mt_all; mt_first += mt_round) {
     const int mt_warp = mt_first + wm * kWM;
-    float acc[kWM][kNTW][4];
+    float acc[kWM][NTW][4];
 #pragma unroll
     for (int i = 0; i < kWM; ++i)
 #pragma unroll
-      for (int j = 0; j < kNTW; ++j)
+      for (int j = 0; j < NTW; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
 
@@ -238,14 +248,14 @@ __device__ __forceinline__ void gemm(int M, int K, int N, const bf16* A,
       if (n_tiles > 0) {
 #pragma unroll 2
         for (int ks = 0; ks < ksteps; ++ks) {
-          uint32_t a[kWM][4], b[kNTW][2];
+          uint32_t a[kWM][4], b[NTW][2];
 #pragma unroll
           for (int i = 0; i < kWM; ++i)
             if (mt_warp + i < mt_all)
               ldmatrix_x4(a[i], A + ((mt_warp + i) * 16 + a_row) * lda + k0 +
                                     ks * 16 + a_col);
 #pragma unroll
-          for (int j = 0; j < kNTW; ++j)
+          for (int j = 0; j < NTW; ++j)
             if (j < n_tiles) {
               const bf16* w = wb + ((nt0 + j) * 8 + g) * ldw + ks * 16 + 2 * t;
               b[j][0] = *reinterpret_cast<const uint32_t*>(w);
@@ -254,7 +264,7 @@ __device__ __forceinline__ void gemm(int M, int K, int N, const bf16* A,
 #pragma unroll
           for (int i = 0; i < kWM; ++i)
 #pragma unroll
-            for (int j = 0; j < kNTW; ++j)
+            for (int j = 0; j < NTW; ++j)
               if (j < n_tiles && mt_warp + i < mt_all)
                 mma_add(acc[i][j], a[i], b[j][0], b[j][1]);
         }
@@ -279,7 +289,7 @@ __device__ __forceinline__ void gemm(int M, int K, int N, const bf16* A,
         const int m = (mt_warp + i) * 16 + g + h * 8;
         if (mt_warp + i >= mt_all || m >= M) continue;
 #pragma unroll
-        for (int j = 0; j < kNTW; ++j) {
+        for (int j = 0; j < NTW; ++j) {
           const int n = (nt0 + j) * 8 + 2 * t;
           if (j < n_tiles && n < N)
             epi(m, tag[i][h], n, acc[i][j][2 * h] + bias_r[j][0],

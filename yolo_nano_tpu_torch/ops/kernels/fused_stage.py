@@ -52,8 +52,10 @@ _KERNELS = {torch.float32: ("fused_stage", "shuffle_block_f32",
                             "shuffle_block"),
             torch.bfloat16: ("fused_stage_bf16", "shuffle_block_bf16",
                              "shuffle_block_bf16")}
-# f32: the gemm's 16 warps cover at most 64 n8 tiles; bf16: 8 warps, 32
-C2_MAX = {torch.float32: 512, torch.bfloat16: 256}
+# the widest c2 of each kernel: f32, 16 warps of at most 4 n8 tiles; bf16,
+# 8 warps of at most 4 n8 tiles up to c2 = 256 and 8 above (its wide
+# variant, stage 4 at 1.5x and 2.0x)
+C2_MAX = {torch.float32: 512, torch.bfloat16: 512}
 
 
 def _round_up(v: int, m: int) -> int:

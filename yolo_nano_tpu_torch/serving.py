@@ -43,6 +43,7 @@ def predictor(model, cfg, input_size: int, dev: torch.device,
 
     predict_fn.model = model
     predict_fn.cfg = cfg
+    predict_fn.input_size = input_size
     predict_fn.device = dev
     predict_fn.dtype = tdtype
     return predict_fn
@@ -51,6 +52,7 @@ def predictor(model, cfg, input_size: int, dev: torch.device,
 def load_predictor(path: str, device=None,
                    conf_thresh: Optional[float] = None,
                    nms_thresh: Optional[float] = None,
+                   diou_nms: Optional[bool] = None,
                    pre_topk: Optional[int] = None,
                    max_det: Optional[int] = None) -> Callable:
     """Load a folded artifact → predict_fn(images) → numpy (boxes [B,D,4],
@@ -58,15 +60,15 @@ def load_predictor(path: str, device=None,
 
     `images`: [B, S, S, 3] float32 RGB, normalized like the JAX package's
     val_transform output; a bf16 artifact (`"dtype": "bfloat16"`) casts them
-    to bf16 on the device. The thresholds override the artifact's; pre_topk
-    and max_det change the fixed output shapes. The weights go to the device
+    to bf16 on the device. The thresholds and diou_nms override the
+    artifact's; pre_topk and max_det change the fixed output shapes. The weights go to the device
     once, here."""
     from yolo_nano_tpu_torch.convert import load_model
 
     dev = resolve_device(device)
     overrides = {k: v for k, v in (
         ("conf_thresh", conf_thresh), ("nms_thresh", nms_thresh),
-        ("nms_pre_topk", pre_topk),
+        ("diou_nms", diou_nms), ("nms_pre_topk", pre_topk),
         ("max_detections", max_det)) if v is not None}
     model, cfg, meta = load_model(path, **overrides)
     dtype = meta["dtype"]

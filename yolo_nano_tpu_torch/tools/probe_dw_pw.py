@@ -112,9 +112,9 @@ STAGE_PROBES = (
      "  }\n  STAMP(0);\n"),
     ("  __syncthreads();\n\n  const bf16* w_pw1",
      "  __syncthreads();\n  STAMP(1);\n\n  const bf16* w_pw1"),
-    ("                           });\n  __syncthreads();\n"
+    ("      });\n  __syncthreads();\n"
      "  if (!RESIDENT) mb::prefetch(c2, c2",
-     "                           });\n  __syncthreads();\n  STAMP(2);\n"
+     "      });\n  __syncthreads();\n  STAMP(2);\n"
      "  if (!RESIDENT) mb::prefetch(c2, c2"),
     ("                    lay.ldd);\n  mb::cp_async_wait<0>();\n"
      "  __syncthreads();\n  // 5.",
