@@ -59,7 +59,25 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
      path's (match_detections); the launch counts of each run, and its
      time in evaluate split into the loader's waits, predict_fn, and the
      letterbox undo and AP protocol;
-  7. a JSON line of kernel numbers, the card line, and the result line.
+  7. training through cli.train.main: a VOC2007 trainval split of 256 new
+     scenes beside phase 6's test split; run A (1.0x VOC, 416 px, batch
+     16, -ms, --ema, the eval hook every epoch, 2 epochs), run B (A
+     resumed with --resume auto to 3 epochs: it must resume at step 32)
+     and run C (3 epochs uninterrupted), B's epoch-2 log rows (epoch,
+     iter, size, step) equal to C's; every next() of device_prefetch
+     under set_sync_debug_mode("error"), a sample of its batches equal to
+     the host's bit for bit; no kernel launched in a training step, each
+     eval hook 16 bf16 fused_stage and 6 bf16 fused_dw_pw launches per
+     forward, the precision flags unchanged across it; then cli.export of
+     run C's checkpoint with --ema in f32 and bf16: each .npz equal to
+     fold_bn (and the cast) of the state's EMA model bit for bit, and
+     load_predictor on it launching both kernels, its head outputs
+     within check_close of the plain versions'; prints the CLI's training
+     img/s (the epoch loops' images over their seconds, eval hooks out)
+     beside phase 4's bare step, the share of those seconds spent waiting
+     for batches, the pinned host→device copy ms of a batch, each eval
+     hook's seconds and AP, and peak memory;
+  8. a JSON line of kernel numbers, the card line, and the result line.
 
 A bound is the least time the card could take for a kernel's work: the
 larger of its bytes (each input read once, each output written once) over
@@ -80,9 +98,11 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import json
 import os
 import subprocess
+import tempfile
 import time
 from typing import Optional
 
@@ -1478,6 +1498,22 @@ def _scene(rng):
     return np.rint(img).astype(np.uint8), objs
 
 
+def write_voc_scene(voc: str, name: str, img, objs) -> None:
+    """One _scene as a VOC2007 JPEG and its annotation."""
+    import cv2
+
+    h, w = img.shape[:2]
+    cv2.imwrite(os.path.join(voc, "JPEGImages", name + ".jpg"), img)
+    xml = "".join(
+        f"<object><name>{VOC_SHAPE_NAMES[c]}</name><difficult>0"
+        f"</difficult><bndbox><xmin>{x}</xmin><ymin>{y}</ymin><xmax>"
+        f"{x + s}</xmax><ymax>{y + s}</ymax></bndbox></object>"
+        for c, x, y, s in objs)
+    with open(os.path.join(voc, "Annotations", name + ".xml"), "w") as f:
+        f.write(f"<annotation><size><width>{w}</width><height>{h}"
+                f"</height></size>{xml}</annotation>")
+
+
 def write_eval_sets(root: str, n: int = EVAL_IMAGES, seed: int = 11):
     """n scenes (_scene) written twice as JPEGs, a VOC2007 test split and a
     COCO val2017 split (all 80 categories declared). → (VOCdevkit root,
@@ -1500,16 +1536,8 @@ def write_eval_sets(root: str, n: int = EVAL_IMAGES, seed: int = 11):
             per_class[c] += 1
         name = f"s{i:05d}"
         names.append(name)
-        cv2.imwrite(os.path.join(voc, "JPEGImages", name + ".jpg"), img)
+        write_voc_scene(voc, name, img, objs)
         cv2.imwrite(os.path.join(coco, "val2017", f"{i + 1:012}.jpg"), img)
-        xml = "".join(
-            f"<object><name>{VOC_SHAPE_NAMES[c]}</name><difficult>0"
-            f"</difficult><bndbox><xmin>{x}</xmin><ymin>{y}</ymin><xmax>"
-            f"{x + s}</xmax><ymax>{y + s}</ymax></bndbox></object>"
-            for c, x, y, s in objs)
-        with open(os.path.join(voc, "Annotations", name + ".xml"), "w") as f:
-            f.write(f"<annotation><size><width>{w}</width><height>{h}"
-                    f"</height></size>{xml}</annotation>")
         images.append({"id": i + 1, "file_name": f"{i + 1:012}.jpg",
                        "width": w, "height": h})
         for c, x, y, s in objs:
@@ -1697,7 +1725,9 @@ def artifact_train_state(npz: str):
     for name, t in init.params.items():
         unit, attr = name.rsplit(".", 1)
         if attr == "bn_scale":
-            params[name] = torch.sqrt(torch.ones_like(t) + BN_EPS)
+            # the square root as fold_bn takes it (f64, rounded once)
+            params[name] = torch.sqrt((torch.ones_like(t) + BN_EPS).double()
+                                      ).float()
             continue
         if attr == "bias" and unit + ".bn_scale" in init.params:
             params[name] = torch.zeros_like(t)
@@ -1715,7 +1745,7 @@ def artifact_train_state(npz: str):
                       copy(params), copy(stats)), cfg
 
 
-def phase_eval(state, cfg):
+def phase_eval(state, cfg, tmp: str):
     """Evaluation on the card through cli.eval.main, on synthetic VOC and
     COCO sets written to a temporary directory: the port's evaluators on
     an oracle predict_fn (AP 1.0); then cli.eval on the f32 artifact (the
@@ -1725,85 +1755,402 @@ def phase_eval(state, cfg):
     4's trained state, each at its bf16 default (AP within
     EVAL_BF16_AP_ATOL; the two artifacts' detections matched to the plain
     path's by match_detections); each run's launch counts and its time in
-    evaluate by part."""
-    import tempfile
-
+    evaluate by part. The sets are written under `tmp`, which phase 7
+    reuses. → (the numbers, the VOCdevkit root)."""
     from yolo_nano_tpu_torch.evaluation.evaluator import (COCOEvaluator,
                                                           VOCEvaluator)
     from yolo_nano_tpu_torch.utils.checkpoint import CheckpointManager
 
     batches = -(-EVAL_IMAGES // BATCH)
     out = {}
-    with tempfile.TemporaryDirectory() as tmp:
-        voc_root, coco_root, per_class = write_eval_sets(tmp, EVAL_IMAGES)
-        print(f"[6] evaluation: {EVAL_IMAGES} synthetic scenes as VOC and "
-              f"COCO ({per_class} boxes per class), {SIZE} px, batch {BATCH}")
-        voc = VOCEvaluator(voc_root, SIZE, batch_size=BATCH)
-        voc.evaluate(oracle_predict_fn(voc.dataset, "voc"))
-        present = {c: ap for c, ap in voc.aps.items() if voc.gt_npos[c]}
-        ev = COCOEvaluator(coco_root, SIZE, batch_size=BATCH)
-        ap50, ap = ev.evaluate(oracle_predict_fn(ev.dataset, "coco"))
-        print(f"  oracle predict_fn: VOC AP of the present classes "
-              f"{present}, COCO AP {ap!r}, AP50 {ap50!r}")
-        if len(present) != 3 or any(abs(v - 1) > 1e-6 for v in
-                                    present.values()) or not (
-                abs(ap - 1) <= 1e-6 and abs(ap50 - 1) <= 1e-6):
-            raise AssertionError("the oracle predict_fn does not score 1.0")
-        out["oracle"] = dict(voc_aps=present, coco_ap=ap, coco_ap50=ap50)
+    voc_root, coco_root, per_class = write_eval_sets(tmp, EVAL_IMAGES)
+    print(f"[6] evaluation: {EVAL_IMAGES} synthetic scenes as VOC and "
+          f"COCO ({per_class} boxes per class), {SIZE} px, batch {BATCH}")
+    voc = VOCEvaluator(voc_root, SIZE, batch_size=BATCH)
+    voc.evaluate(oracle_predict_fn(voc.dataset, "voc"))
+    present = {c: ap for c, ap in voc.aps.items() if voc.gt_npos[c]}
+    ev = COCOEvaluator(coco_root, SIZE, batch_size=BATCH)
+    ap50, ap = ev.evaluate(oracle_predict_fn(ev.dataset, "coco"))
+    print(f"  oracle predict_fn: VOC AP of the present classes "
+          f"{present}, COCO AP {ap!r}, AP50 {ap50!r}")
+    if len(present) != 3 or any(abs(v - 1) > 1e-6 for v in
+                                present.values()) or not (
+            abs(ap - 1) <= 1e-6 and abs(ap50 - 1) <= 1e-6):
+        raise AssertionError("the oracle predict_fn does not score 1.0")
+    out["oracle"] = dict(voc_aps=present, coco_ap=ap, coco_ap50=ap50)
 
-        scoring, scoring_cfg = artifact_train_state(NPZ)
-        CheckpointManager(os.path.join(tmp, "artifact")).save(0, scoring)
-        CheckpointManager(os.path.join(tmp, "trained")).save(
-            int(state.step), state)
-        common = ["-d", "coco-val", "--root", coco_root, "--img_size",
-                  str(SIZE), "--batch_size", str(BATCH)]
-        # (key, what, --weight and flags, bf16, match the detections)
-        runs = (
-            ("f32_artifact", "f32 artifact", ["--weight", NPZ], False, False),
-            ("bf16_05x_artifact", "bf16 0.5x artifact",
-             ["--weight", NPZ_05X], True, True),
-            ("bf16_1x_checkpoint_ema", "bf16 checkpoint of the 1.0x "
-             "artifact's weights, --ema",
-             ["--weight", os.path.join(tmp, "artifact"), "--backbone",
-              scoring_cfg.backbone, "--ema"], True, True),
-            # phase 4's 30 steps score AP near 0 on these scenes, and its
-            # detections (degenerate boxes among them) are not matched:
-            # this run checks the CLI on a trained state and its launches
-            ("bf16_phase4_checkpoint", "bf16 checkpoint of phase 4's state",
-             ["--weight", os.path.join(tmp, "trained"), "--backbone",
-              cfg.backbone], True, False))
-        for key, what, flags, bf16, match in runs:
-            got, want, (w, plain_w), t = run_cli_eval(
-                what, common + flags, bf16, batches)
-            gap = ap_close(what, got.stats, want.stats,
-                           EVAL_BF16_AP_ATOL if bf16 else EVAL_F32_AP_ATOL)
-            out[key] = dict(t, ap_gap=gap, stats=got.stats,
-                            plain_stats=want.stats)
-            if not match:
-                continue
-            fn, matches = plain_w["fn"], {}
-            for images, got_b, want_b in zip(plain_w["images"], w["outs"],
-                                             plain_w["outs"]):
-                cutoffs = kernel_vs_plain(fn, images)[1]
-                for k, v in match_detections(
-                        got_b, want_b, fn.cfg.conf_thresh, fn.cfg.nms_thresh,
-                        cutoffs=cutoffs, **BF16_MATCH).items():
-                    matches[k] = (max(matches.get(k, 0.0), v)
-                                  if k == "score_rdiff"
-                                  else matches.get(k, 0) + v)
-            print(f"  {what}: detections against the plain path's: "
-                  f"{matches}")
-            out[key]["matches"] = matches
-        # the checkpoint is the trained model: it scores near the artifact
-        ckpt_ap = out["bf16_1x_checkpoint_ema"]["plain_stats"]["AP"]
-        artifact_ap = out["f32_artifact"]["plain_stats"]["AP"]
-        print(f"  the 1.0x artifact's weights: AP {artifact_ap:.6f} as the "
-              f"f32 artifact, {ckpt_ap:.6f} as a bf16 checkpoint")
-        if not ckpt_ap >= 0.5 * artifact_ap:
-            raise AssertionError("the checkpoint of the 1.0x artifact's "
-                                 f"weights scores AP {ckpt_ap}, under half "
-                                 f"the artifact's {artifact_ap}")
+    scoring, scoring_cfg = artifact_train_state(NPZ)
+    CheckpointManager(os.path.join(tmp, "artifact")).save(0, scoring)
+    CheckpointManager(os.path.join(tmp, "trained")).save(
+        int(state.step), state)
+    common = ["-d", "coco-val", "--root", coco_root, "--img_size",
+              str(SIZE), "--batch_size", str(BATCH)]
+    # (key, what, --weight and flags, bf16, match the detections)
+    runs = (
+        ("f32_artifact", "f32 artifact", ["--weight", NPZ], False, False),
+        ("bf16_05x_artifact", "bf16 0.5x artifact",
+         ["--weight", NPZ_05X], True, True),
+        ("bf16_1x_checkpoint_ema", "bf16 checkpoint of the 1.0x "
+         "artifact's weights, --ema",
+         ["--weight", os.path.join(tmp, "artifact"), "--backbone",
+          scoring_cfg.backbone, "--ema"], True, True),
+        # phase 4's 30 steps score AP near 0 on these scenes, and its
+        # detections (degenerate boxes among them) are not matched:
+        # this run checks the CLI on a trained state and its launches
+        ("bf16_phase4_checkpoint", "bf16 checkpoint of phase 4's state",
+         ["--weight", os.path.join(tmp, "trained"), "--backbone",
+          cfg.backbone], True, False))
+    for key, what, flags, bf16, match in runs:
+        got, want, (w, plain_w), t = run_cli_eval(
+            what, common + flags, bf16, batches)
+        gap = ap_close(what, got.stats, want.stats,
+                       EVAL_BF16_AP_ATOL if bf16 else EVAL_F32_AP_ATOL)
+        out[key] = dict(t, ap_gap=gap, stats=got.stats,
+                        plain_stats=want.stats)
+        if not match:
+            continue
+        fn, matches = plain_w["fn"], {}
+        for images, got_b, want_b in zip(plain_w["images"], w["outs"],
+                                         plain_w["outs"]):
+            cutoffs = kernel_vs_plain(fn, images)[1]
+            for k, v in match_detections(
+                    got_b, want_b, fn.cfg.conf_thresh, fn.cfg.nms_thresh,
+                    cutoffs=cutoffs, **BF16_MATCH).items():
+                matches[k] = (max(matches.get(k, 0.0), v)
+                              if k == "score_rdiff"
+                              else matches.get(k, 0) + v)
+        print(f"  {what}: detections against the plain path's: "
+              f"{matches}")
+        out[key]["matches"] = matches
+    # the checkpoint is the trained model: it scores near the artifact
+    ckpt_ap = out["bf16_1x_checkpoint_ema"]["plain_stats"]["AP"]
+    artifact_ap = out["f32_artifact"]["plain_stats"]["AP"]
+    print(f"  the 1.0x artifact's weights: AP {artifact_ap:.6f} as the "
+          f"f32 artifact, {ckpt_ap:.6f} as a bf16 checkpoint")
+    if not ckpt_ap >= 0.5 * artifact_ap:
+        raise AssertionError("the checkpoint of the 1.0x artifact's "
+                             f"weights scores AP {ckpt_ap}, under half "
+                             f"the artifact's {artifact_ap}")
+    return out, voc_root
+
+
+# ---------------------------------------------------------------------------
+# phase 7: training through the CLI
+# ---------------------------------------------------------------------------
+
+TRAIN_SCENES = 256
+# a bf16 export's head outputs: the kernel path's RMS distance from the
+# witness (the same forward on the bf16 weights widened to f32, plain
+# versions) within this many times the plain path's, the yardstick of
+# tests/test_torch_bf16.py. Elementwise they cannot be held: a rounding
+# flip early in the forward moves everything after it by its gain through
+# the later layers (1.75 to 2.97 bf16 ulps of each output's max|ref| on a
+# 48-step model whose logits reach 350 to 580).
+BF16_HEAD_RATIO = 2.0
+# batches of each epoch whose device copy is held against the host batch
+PREFETCH_SAMPLE = (0, 7, 15)
+
+
+def write_train_split(voc_root: str, n: int = TRAIN_SCENES, seed: int = 12
+                      ) -> list:
+    """n new scenes (_scene) as the VOC2007 trainval split, beside phase 6's
+    test split. → boxes per class."""
+    rng = np.random.default_rng(seed)
+    voc = os.path.join(voc_root, "VOC2007")
+    names, per_class = [], [0, 0, 0]
+    for i in range(n):
+        img, objs = _scene(rng)
+        for c, *_ in objs:
+            per_class[c] += 1
+        names.append(f"t{i:05d}")
+        write_voc_scene(voc, names[-1], img, objs)
+    with open(os.path.join(voc, "ImageSets", "Main", "trainval.txt"),
+              "w") as f:
+        f.write("\n".join(names) + "\n")
+    return per_class
+
+
+class Tee:
+    """stdout written through and kept."""
+
+    def __init__(self, out):
+        self.out, self.text = out, []
+
+    def write(self, s):
+        self.text.append(s)
+        return self.out.write(s)
+
+    def flush(self):
+        self.out.flush()
+
+
+@contextlib.contextmanager
+def watch_cli_train():
+    """cli.train.main watched from outside: every next() of its
+    device_prefetch runs under set_sync_debug_mode("error") (a host sync
+    in the copies raises), and PREFETCH_SAMPLE's batches of each epoch are
+    kept with their host batch; each eval hook's evaluate is entered with
+    no kernel launched since the last hook (the train steps run unfused
+    convs), its launches counted alone, and the precision flags read
+    around it. → that dict, filled as main runs."""
+    import sys
+
+    from yolo_nano_tpu_torch.data import loader
+    from yolo_nano_tpu_torch.evaluation.evaluator import VOCEvaluator
+    from yolo_nano_tpu_torch.models.yolo_nano import precision_flags
+
+    w = dict(pairs=[], batches=0, hooks=[], tee=Tee(sys.stdout))
+    prefetch, evaluate = loader.device_prefetch, VOCEvaluator.evaluate
+
+    def prefetch_watched(iterator, *a, **kw):
+        host = {}
+
+        def kept():
+            for i, batch in enumerate(iterator):
+                if i in PREFETCH_SAMPLE:
+                    host[i] = batch
+                yield batch
+
+        batches = prefetch(kept(), *a, **kw)
+
+        def watched():
+            i = 0
+            while True:
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    batch = next(batches)
+                except StopIteration:
+                    return
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                w["batches"] += 1
+                if i in PREFETCH_SAMPLE:
+                    w["pairs"].append((host[i], batch))
+                i += 1
+                yield batch
+        return watched()
+
+    def evaluate_watched(self, fn):
+        during_steps = read_counts()
+        if any(during_steps.values()):
+            raise AssertionError(f"kernels launched in training steps: "
+                                 f"{during_steps}")
+        flags = precision_flags()
+        reset_counts()
+        out = evaluate(self, fn)
+        counts = read_counts()
+        reset_counts()
+        forwards = -(-len(self.dataset) // self.batch_size)
+        if counts != want_counts(forwards, bf16=True):
+            raise AssertionError(f"eval hook launches {counts}, expected "
+                                 f"{want_counts(forwards, bf16=True)}")
+        if precision_flags() != flags:
+            raise AssertionError(f"the eval hook changed the precision "
+                                 f"flags {flags} → {precision_flags()}")
+        present = {c: ap for c, ap in self.aps.items() if self.gt_npos[c]}
+        w["hooks"].append(dict(counts=counts, forwards=forwards,
+                               flags=flags, aps=present))
+        return out
+
+    loader.device_prefetch, VOCEvaluator.evaluate = (prefetch_watched,
+                                                     evaluate_watched)
+    try:
+        with contextlib.redirect_stdout(w["tee"]):
+            yield w
+    finally:
+        loader.device_prefetch, VOCEvaluator.evaluate = prefetch, evaluate
+
+
+def run_cli_train(tag: str, argv: list) -> dict:
+    """cli.train.main(argv) watched (watch_cli_train); checks the prefetched
+    batches against the host's and that no kernel launched after the last
+    hook. → main's dict, with the watch and the run's peak memory."""
+    from yolo_nano_tpu_torch.cli import train as cli_train
+
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with watch_cli_train() as w:
+        out = cli_train.main(argv)
+    out.update(watch=w, cli_s=time.perf_counter() - t0,
+               peak_bytes=torch.cuda.max_memory_allocated())
+    if any(read_counts().values()):
+        raise AssertionError(f"{tag}: kernels launched in training steps "
+                             f"{read_counts()}")
+    for host, dev in w["pairs"]:
+        for a, t in zip(host, dev):
+            if not torch.equal(t.cpu(), torch.from_numpy(a)):
+                raise AssertionError(f"{tag}: a prefetched batch differs "
+                                     "from its host batch")
+    hook_s = out["eval_s"]
+    print(f"  {tag}: {out['images']} images in {out['loop_s']:.3f} s of "
+          f"epoch loops ({out['images'] / out['loop_s']:.1f} img/s), "
+          f"waiting for batches {out['loader_wait_s']:.3f} s "
+          f"({out['loader_wait_s'] / out['loop_s']:.3f} of them); "
+          f"{w['batches']} batches through device_prefetch under "
+          f"set_sync_debug_mode('error'), {len(w['pairs'])} of them (on "
+          f"{w['pairs'][0][1][0].device}) equal to their host batch bit "
+          f"for bit; eval hooks "
+          + ", ".join(f"{s:.3f} s (AP {h['aps']}, launches "
+                      f"{h['counts']['fused_stage_bf16']} + "
+                      f"{h['counts']['fused_dw_pw_bf16']} bf16 in "
+                      f"{h['forwards']} forwards)"
+                      for s, h in zip(hook_s, w["hooks"]))
+          + f"; peak memory {out['peak_bytes'] / 2**30:.2f} GiB; the whole "
+          f"CLI {out['cli_s']:.3f} s")
     return out
+
+
+def log_rows(save: str, epoch: int) -> list:
+    with open(os.path.join(save, "voc", "yolo_nano", "train_log.jsonl")) as f:
+        return [(r["epoch"], r["iter"], r["size"], r["step"])
+                for r in map(json.loads, f) if r["epoch"] == epoch]
+
+
+def check_export(tag: str, ckpt: str, state, cfg, dtype: str, images_np,
+                 out_dir: str) -> dict:
+    """cli.export.main on a checkpoint with --ema: the .npz equals fold_bn
+    (and the bf16 cast) of the state's EMA model bit for bit; load_predictor
+    on it launches both kernels, and its head outputs hold to the plain
+    versions' (f32: check_close, phase 4's fold→predict tolerance; bf16:
+    as far from the f32 witness as the plain path, BF16_HEAD_RATIO)."""
+    from yolo_nano_tpu_torch.cli import export as cli_export
+    from yolo_nano_tpu_torch.convert import (flatten_tree, load_npz,
+                                             model_from_state,
+                                             tree_from_model)
+    from yolo_nano_tpu_torch.serving import load_predictor
+    from yolo_nano_tpu_torch.utils.fuse_bn import cast_f32_to_bf16, fold_bn
+
+    path = cli_export.main(["--weight", ckpt, "--out",
+                            os.path.join(out_dir, f"export_{dtype}"),
+                            "--ema", "-d", "voc", "--img_size", str(SIZE),
+                            "--dtype", dtype])
+    model = fold_bn(model_from_state(state.to("cpu"), cfg, ema=True))
+    if dtype == "bfloat16":
+        model = cast_f32_to_bf16(model)
+    want = flatten_tree(tree_from_model(model))
+    got = flatten_tree(load_npz(path)[0])
+    if got.keys() != want.keys():
+        raise AssertionError(f"{tag}: the export holds other leaves")
+    for k, v in want.items():
+        g = got[k] if isinstance(got[k], torch.Tensor) else torch.from_numpy(
+            got[k])
+        if g.dtype != v.dtype or not torch.equal(g, v):
+            raise AssertionError(f"{tag}: {k} differs from the state's fold")
+    fn = load_predictor(path)
+    x = torch.from_numpy(images_np).cuda().to(fn.dtype)
+    with torch.inference_mode():
+        fn(images_np)                                 # warm-up
+        reset_counts()
+        fn(images_np)
+        counts = read_counts()
+        features = fn.model(x)
+        with plain_kernels():
+            plain_features = fn.model(x)
+    want_c = want_counts(1, bf16=dtype == "bfloat16")
+    if counts != want_c:
+        raise AssertionError(f"{tag}: launch counts {counts}, expected "
+                             f"{want_c}")
+    witness = [None] * 3
+    if dtype == "bfloat16":
+        with torch.inference_mode(), plain_kernels():
+            witness = copy.deepcopy(fn.model).float()(x.float())
+    errs = {}
+    for name, g, w, ref in zip(("conf", "cls", "txtytwth"), features,
+                               plain_features, witness):
+        if dtype == "float32":  # phase 4's fold→predict tolerance
+            errs[name] = check_close(f"{tag}: head output {name}", g, w,
+                                     torch.float32)
+            continue
+        errs[name] = (g.float() - w.float()).abs().max().item()
+        rms = [(t.float() - ref).square().mean().sqrt().item()
+               for t in (g, w)]
+        print(f"  {tag}: head output {name}: max_abs_err {errs[name]:.3g} "
+              f"({bf16_ulps(g, w)[0]:.3g} bf16 ulps of max|ref| "
+              f"{w.float().abs().max().item():.4g}), "
+              f"{float((g == w).float().mean()):.5f} bit-equal; RMS off the "
+              f"f32 witness {rms[0]:.4g} / {rms[1]:.4g} (kernel / plain), "
+              f"{rms[0] / rms[1]:.3f}x, tolerance {BF16_HEAD_RATIO}x")
+        if not rms[0] <= BF16_HEAD_RATIO * rms[1]:
+            raise AssertionError(f"{tag}: head output {name} is {rms[0]} off "
+                                 f"the witness, the plain path {rms[1]}")
+    print(f"  {tag}: {len(want)} leaves equal fold_bn of the state's EMA "
+          f"model bit for bit; load_predictor launches {counts}")
+    return dict(counts=counts, head_max_abs_err=errs)
+
+
+def phase_train_cli(voc_root: str, tmp: str, images_np, bare: dict) -> dict:
+    """Training through cli.train.main on phase 6's VOCdevkit with a
+    trainval split of its own (TRAIN_SCENES scenes), 1.0x VOC, 416 px,
+    batch 16, multi-scale, EMA, the eval hook every epoch on phase 6's
+    test scenes: run A (2 epochs), run B (A resumed to 3 epochs, from step
+    32), run C (3 epochs uninterrupted), B's epoch-2 log rows equal to
+    C's; then cli.export of C's checkpoint in f32 and bf16
+    (check_export)."""
+    per_class = write_train_split(voc_root, TRAIN_SCENES)
+    steps = TRAIN_SCENES // TRAIN_BATCH
+    print(f"[7] training through cli.train: {TRAIN_SCENES} synthetic scenes "
+          f"({per_class} boxes per class), 1.0x VOC, {SIZE} px, batch "
+          f"{TRAIN_BATCH} ({steps} steps an epoch), -ms, --ema, the eval "
+          f"hook every epoch on phase 6's {EVAL_IMAGES} test scenes")
+    common = ["-d", "voc", "--root", voc_root, "--voc_sets", "2007",
+              "--img_size", str(SIZE), "--batch_size", str(TRAIN_BATCH),
+              "--num_workers", "4", "-ms", "--ema", "--eval_epoch", "1"]
+    dir_a, dir_c = os.path.join(tmp, "run_a"), os.path.join(tmp, "run_c")
+    runs = {}
+    runs["A"] = run_cli_train("run A, 2 epochs", common + [
+        "--save_folder", dir_a, "--max_epoch", "2"])
+    runs["B"] = run_cli_train("run B, A resumed to 3 epochs", common + [
+        "--save_folder", dir_a, "--max_epoch", "3", "--resume", "auto"])
+    printed = "".join(runs["B"]["watch"]["tee"].text)
+    if f"resumed @ step {2 * steps} " not in printed:
+        raise AssertionError(f"run B did not resume at step {2 * steps}")
+    runs["C"] = run_cli_train("run C, 3 epochs", common + [
+        "--save_folder", dir_c, "--max_epoch", "3"])
+    rows_b, rows_c = log_rows(dir_a, 2), log_rows(dir_c, 2)
+    if not rows_c or rows_b != rows_c:
+        raise AssertionError(f"run B's epoch-2 rows {rows_b} differ from run "
+                             f"C's {rows_c}")
+    print(f"  run B resumed @ step {2 * steps}; its epoch-2 rows (epoch, "
+          f"iter, size, step) equal run C's: {rows_c}")
+
+    # the host→device copy of one batch from pinned memory, alone
+    from yolo_nano_tpu_torch.data.loader import pin_batch
+
+    host, _ = runs["C"]["watch"]["pairs"][0]
+    pinned = pin_batch(host)
+    copy_ms = time_ms(lambda: [t.to("cuda", non_blocking=True)
+                               for t in pinned], iters=10)
+    print(f"  host→device copy of a batch ({nbytes(*pinned) / 2**20:.1f} "
+          f"MiB) from pinned memory: {copy_ms:.3f} ms")
+
+    c = runs["C"]
+    state, cfg = c["state"], c["cfg"]
+    ckpt = os.path.join(dir_c, "voc", "yolo_nano", "ckpt")
+    exports = {dtype: check_export(f"export {dtype}", ckpt, state, cfg,
+                                   dtype, images_np, tmp)
+               for dtype in ("float32", "bfloat16")}
+    stats = {}
+    for key, r in runs.items():
+        w = r["watch"]
+        stats[key] = dict(
+            images=r["images"], loop_s=r["loop_s"],
+            img_per_s=r["images"] / r["loop_s"],
+            loader_wait_s=r["loader_wait_s"],
+            loader_share=r["loader_wait_s"] / r["loop_s"],
+            eval_hook_s=r["eval_s"], eval_hook_aps=[h["aps"] for h in
+                                                    w["hooks"]],
+            eval_hook_counts=[h["counts"] for h in w["hooks"]],
+            batches=w["batches"], batches_checked=len(w["pairs"]),
+            peak_bytes=r["peak_bytes"], cli_s=r["cli_s"])
+    print(f"  CLI training {stats['C']['img_per_s']:.1f} img/s (run C, "
+          f"multi-scale 320-608 px) beside phase 4's bare step "
+          f"{bare['img_per_s']:.1f} img/s (416 px); waiting for batches "
+          f"{stats['C']['loader_share']:.3f} of the loops; eval hook "
+          f"{np.mean(c['eval_s']):.3f} s on average")
+    return dict(runs=stats, resumed_rows=rows_c, h2d_pinned_ms=copy_ms,
+                h2d_bytes=nbytes(*pinned), exports=exports)
 
 
 def kernel_row(name, source, rows, per_fwd, launches, replaces):
@@ -1877,7 +2224,10 @@ def main():
     from yolo_nano_tpu_torch.config import config_from_json
     from yolo_nano_tpu_torch.convert import load_npz
 
-    eval_stats = phase_eval(train_state, config_from_json(load_npz(NPZ)[1]))
+    with tempfile.TemporaryDirectory() as tmp:
+        eval_stats, voc_root = phase_eval(
+            train_state, config_from_json(load_npz(NPZ)[1]), tmp)
+        cli_stats = phase_train_cli(voc_root, tmp, images_np, train_stats)
     print(json.dumps({"main_path": stats, "batch": BATCH, "size": SIZE,
                       "training": train_stats,
                       "fused_dw_pw_per_shape": dw_rows,
@@ -1887,7 +2237,7 @@ def main():
                       "fused_stage_bf16_05x_per_stage": stage_rows05,
                       "make_predict_fn_bf16_1x": stats1x_bf16,
                       "make_predict_fn_bf16_wide": stats_wide,
-                      "eval": eval_stats}))
+                      "eval": eval_stats, "train_cli": cli_stats}))
     # the main path runs the heads in f32 with leaky/leaky
     main_dw = [r for r in dw_rows if r["dtype"] == "float32"
                and r["acts"] == "leaky/leaky"]
@@ -1921,6 +2271,14 @@ def main():
         tag = ("bf16_05x_artifact" if row["name"].endswith("_bf16")
                else "f32_artifact")
         row["launches_eval"] = eval_stats[tag]["counts"][row["name"]]
+    for row in kernels:  # phase 7: each run's eval hooks, then the export
+        dtype = "bfloat16" if row["name"].endswith("_bf16") else "float32"
+        if dtype == "bfloat16":
+            row["launches_train_cli_eval_hooks"] = sum(
+                h[row["name"]] for r in cli_stats["runs"].values()
+                for h in r["eval_hook_counts"])
+        row["launches_export_" + dtype] = cli_stats["exports"][dtype][
+            "counts"][row["name"]]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -603,3 +603,76 @@ def test_build_targets_on_cuda_with_collisions_matches_cpu(dev):
     torch.testing.assert_close(got[..., 4:6], want[..., 4:6], rtol=0,
                                atol=1e-6)
     assert (want[..., 0] == 1).sum() > 0 and (want[..., 0] == -1).sum() > 0
+
+
+# ---------------------------------------------------------------------------
+# device_prefetch: pinned staging, a copy stream, the consumer's wait
+# ---------------------------------------------------------------------------
+
+def _host_batches(n=10, b=8, size=96, m=16):
+    """Distinct seeded batches of a training batch's arrays: images f32,
+    boxes f32, labels int32."""
+    rng = np.random.default_rng(0)
+    return [(rng.normal(size=(b, size, size, 3)).astype(np.float32),
+             rng.uniform(0, 1, (b, m, 4)).astype(np.float32),
+             rng.integers(-1, 20, (b, m)).astype(np.int32))
+            for _ in range(n)]
+
+
+def test_device_prefetch_equals_host_batches_under_a_writing_consumer(dev):
+    """The consumer's stream is held up (a device sleep) and then writes
+    into every batch it was handed: a batch read before its copy ended, or
+    a buffer handed to a later copy while the consumer still had work on
+    it, would show as a batch unequal to the host's."""
+    from yolo_nano_tpu_torch.data.loader import device_prefetch
+
+    host = _host_batches()
+    seen = []
+    for batch in device_prefetch(iter(host), size=2, device=dev):
+        torch.cuda._sleep(2_000_000)   # about a millisecond on the card
+        seen.append(tuple(t.clone() for t in batch))
+        for t in batch:
+            t.fill_(-7)
+        del batch
+    torch.cuda.synchronize()
+    assert len(seen) == len(host)
+    for got, want in zip(seen, host):
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), torch.from_numpy(w))
+
+
+def test_device_prefetch_makes_no_host_sync(dev):
+    from yolo_nano_tpu_torch.data.loader import device_prefetch
+
+    host = _host_batches(n=6)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = [tuple(t.sum() for t in batch)
+               for batch in device_prefetch(iter(host), size=2, device=dev)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    for sums, batch in zip(out, host):
+        for s, a in zip(sums, batch):
+            assert s.item() == torch.from_numpy(a).to(dev).sum().item()
+
+
+def test_device_prefetch_stages_in_pinned_memory(dev, monkeypatch):
+    from yolo_nano_tpu_torch.data import loader
+
+    staged = []
+
+    def pin_spy(batch):
+        out = loader_pin(batch)
+        staged.append(out)
+        return out
+
+    loader_pin = loader.pin_batch
+    monkeypatch.setattr(loader, "pin_batch", pin_spy)
+    host = _host_batches(n=3)
+    out = list(loader.device_prefetch(iter(host), size=2))
+    assert len(staged) == 3
+    assert all(t.is_pinned() for batch in staged for t in batch)
+    for batch, want in zip(out, host):
+        for t, a in zip(batch, want):
+            assert t.is_cuda and t.dtype == torch.from_numpy(a).dtype

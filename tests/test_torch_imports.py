@@ -56,3 +56,12 @@ def test_forbidden_rule():
     assert _forbidden("jax.numpy")
     assert not _forbidden("yolo_nano_tpu_torch.config")
     assert not _forbidden("torch")
+
+
+def test_port_files_cover_the_training_cli_slice():
+    """The walk reaches the training CLI, the export CLI and the backbone
+    converter (the port's copy of tools/convert_torch_shufflenetv2.py)."""
+    got = {os.path.relpath(p, PORT) for p in _port_files()}
+    for name in ("cli/train.py", "cli/export.py",
+                 "tools/convert_shufflenetv2.py"):
+        assert name in got, name

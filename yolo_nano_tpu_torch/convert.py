@@ -18,7 +18,8 @@ numpy arrays of a bfloat16 dtype (as JAX's `np.asarray` gives them).
 Training state goes both ways: `named_from_tree` / `tree_from_named` map a
 tree of parameters (or of anything shaped like them: the momentum, the EMA)
 or of stats to the modules' names and back, and `train_state_from_jax` /
-`train_state_to_jax` carry a whole train state.
+`train_state_to_jax` carry a whole train state. `tree_from_model` gives a
+(folded) model's tree in its own dtype, which `cli/export.py` saves.
 """
 
 from __future__ import annotations
@@ -245,6 +246,20 @@ def tree_from_named(named: dict):
         if attr == "weight":
             a = a.transpose(2, 3, 1, 0)
         flat["/".join(path + [_ATTR_TO_LEAF[attr]])] = a
+    return unflatten_tree(flat)
+
+
+def tree_from_model(model: nn.Module):
+    """A model's parameters → JAX-layout tree of CPU tensors in their own
+    dtype (conv weights OIHW → HWIO), as `save_npz` takes it; for a folded
+    model that is its whole weight tree."""
+    flat = {}
+    for name, t in model.named_parameters():
+        *path, attr = name.split(".")
+        t = t.detach().cpu()
+        if attr == "weight":
+            t = t.permute(2, 3, 1, 0)
+        flat["/".join(path + [_ATTR_TO_LEAF[attr]])] = t.contiguous()
     return unflatten_tree(flat)
 
 

@@ -16,10 +16,11 @@ or any other function of that contract.
 Precision: the port's `models.yolo_nano.predict` calls `set_full_f32()`,
 which turns TF32 off for cuDNN convolutions and matmuls for the whole
 process, and leaves it off. The JAX package has no such global. A caller
-that evaluates inside a training run (the eval hook of the port's
-`cli/train.py`, still to come) must set its own precision again after each
-evaluation, not rely on whatever the last `predict` left; `cli/eval.py`
-sets it explicitly before it builds the predictor.
+must therefore set its own precision explicitly, not rely on whatever the
+last `predict` left: `cli/eval.py` sets full f32 before it builds the
+predictor, and `cli/train.py` sets full f32 for training once at its start
+and raises if its eval hook leaves the flags (`precision_flags()`) other
+than it found them (tests/test_torch_train_cli.py).
 """
 
 from __future__ import annotations

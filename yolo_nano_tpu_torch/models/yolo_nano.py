@@ -169,6 +169,15 @@ def set_full_f32() -> None:
     torch.set_float32_matmul_precision("highest")
 
 
+def precision_flags() -> tuple:
+    """The process-wide settings that decide f32 precision on the card
+    (cuDNN TF32, matmul TF32 and precision), for a caller to check that a
+    call left them as they were."""
+    return (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32,
+            torch.get_float32_matmul_precision())
+
+
 @torch.inference_mode()
 def predict(model: YoloNano, images: torch.Tensor, cfg: YoloNanoConfig,
             input_size: int):

@@ -27,7 +27,11 @@ from yolo_nano_tpu_torch.ops.nn import BN_EPS, ConvUnit
 def fold_unit(unit: ConvUnit) -> ConvUnit:
     if not unit.has_bn:
         return unit
-    factor = unit.bn_scale / torch.sqrt(unit.bn_var + BN_EPS)
+    # the square root in f64, rounded once to the stats' dtype: torch.sqrt
+    # on the CPU's vector units is not always correctly rounded in f32 (1
+    # ulp off on a few channels), which would fold other bits than JAX
+    var = unit.bn_var + BN_EPS
+    factor = unit.bn_scale / torch.sqrt(var.double()).to(var.dtype)
     w = unit.weight * factor[:, None, None, None]
     b = unit.bias if unit.bias is not None else torch.zeros_like(unit.bn_mean)
     b = (b - unit.bn_mean) * factor + unit.bn_bias
