@@ -77,7 +77,22 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
      beside phase 4's bare step, the share of those seconds spent waiting
      for batches, the pinned host→device copy ms of a batch, each eval
      hook's seconds and AP, and peak memory;
-  8. a JSON line of kernel numbers, the card line, and the result line.
+  8. the serving tools, on both artifacts (f32 1.0x, bf16 0.5x): every
+     stage block and head pair against its plain version at the 11 TTA
+     sizes (320-640 px, batch 8) and at 416 px batch 1 (f32 by check_close
+     and 4x cuDNN f32's error against f64, bf16 in ulps and bit-equal
+     share), with each shape's tiles, ms per forward and bound; one image
+     at batch 1 against its row of a batch of 8, bit for bit; TTA on 8
+     scenes (22 x (16 + 6) launches, detections against the plain path's,
+     img/s); cli.eval --tta on phase 6's COCO set (the kernel path's AP
+     equal to the plain path's within 1e-6); load_predictor with
+     batch_buckets="auto" on ragged requests of 1, 5, 33 and 70 scenes,
+     each image against its row of unpadded runs (and whether bit-equal,
+     on the kernel and on the plain path); cli.test (with and without
+     --tta), cli.demo in image and video mode, cli.benchmark in f32 and
+     bf16 with --reference_protocol, its FLOPs lines equal to the CPU's;
+     the launches of every run against its forwards;
+  9. a JSON line of kernel numbers, the card line, and the result line.
 
 A bound is the least time the card could take for a kernel's work: the
 larger of its bytes (each input read once, each output written once) over
@@ -101,7 +116,6 @@ import contextlib
 import copy
 import json
 import os
-import subprocess
 import tempfile
 import time
 from typing import Optional
@@ -263,7 +277,7 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-def check_close(name, got, want, dtype) -> float:
+def check_close(name, got, want, dtype, verbose: bool = True) -> float:
     err = (got.float() - want.float()).abs()
     ref = want.float().abs()
     if dtype == torch.float32:
@@ -274,7 +288,8 @@ def check_close(name, got, want, dtype) -> float:
         ok = bool((err <= 2e-2 + 2e-2 * ref).all())
         tol_s = "2e-2 + 2e-2·|ref|"
     max_err = err.max().item()
-    print(f"  {name}: max_abs_err {max_err:.3g}, tolerance {tol_s}")
+    if verbose:
+        print(f"  {name}: max_abs_err {max_err:.3g}, tolerance {tol_s}")
     if not ok:
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              f"version (max abs err {max_err})")
@@ -288,13 +303,11 @@ def check_close(name, got, want, dtype) -> float:
 def phase_device_and_build():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device")
+    from yolo_nano_tpu_torch.cli.common import card_line
     from yolo_nano_tpu_torch.models.yolo_nano import set_full_f32
     from yolo_nano_tpu_torch.ops.kernels.build import build
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], check=True, capture_output=True,
-        text=True).stdout.strip().splitlines()[0]
+    card = card_line("cuda")
     print(f"[1] card: {card}; torch {torch.__version__}, CUDA "
           f"{torch.version.cuda}")
     set_full_f32()
@@ -1232,18 +1245,35 @@ def bf16_ulps(got, want) -> tuple:
     return err.max().item() / top_ulp, (err / ulp).max().item()
 
 
-def check_blocks_bf16(tag, x, blocks):
+def block_launch_row(lib, x, w, want, dtype, iters: int = 20) -> dict:
+    """One stage-block launch on x: its stride, input shape, the tile its
+    kernel's rule picks, device ms per launch and bound."""
+    from yolo_nano_tpu_torch.ops.kernels.fused_stage import (_launch_block,
+                                                             block_tile)
+
+    flops, wbytes = _stage_cost(x, [w])
+    b_ms, b_by = bound(nbytes(x, want) + wbytes, flops, dtype)
+    b, cin, h, wd = x.shape
+    s, c2 = w["stride"], w["pw1_w"].shape[1]
+    return dict(stride=s, shape=tuple(x.shape),
+                tile=block_tile(s, cin, c2, b, (h - 1) // s + 1,
+                                (wd - 1) // s + 1, dtype),
+                ms=time_ms(lambda: _launch_block(lib, x, w), iters=iters,
+                           queued=True),
+                bound_ms=b_ms, bound_by=b_by)
+
+
+def check_blocks_bf16(tag, x, blocks, verbose: bool = True, iters: int = 20):
     """Each block's bf16 kernel against the plain block on the same input,
     the plain chain's: within BF16_BLOCK_ULPS of the block's max|ref| and
     BF16_BLOCK_EQUAL bit-equal. Both are also held to the witness, the
     block with f64 sums rounded to bf16 where the function rounds: over
     the stage, the kernel's outputs off it within BF16_WITNESS_RATIO times
-    the plain version's. Prints each launch's device ms, tile and bound.
-    → (the plain stage output, a dict of the stage's errors, one row per
-    launch)."""
+    the plain version's. Prints each launch's device ms, tile and bound
+    (verbose), and the stage's summary. → (the plain stage output, a dict
+    of the stage's errors, one row per launch)."""
     from yolo_nano_tpu_torch.ops.kernels.fused_stage import (_launch_block,
-                                                             _lib, block_plain,
-                                                             block_tile)
+                                                             _lib, block_plain)
 
     lib = _lib(torch.bfloat16)
     worst = own = err = 0.0
@@ -1270,22 +1300,17 @@ def check_blocks_bf16(tag, x, blocks):
         k_off, p_off = int((got != exact).sum()), int((want != exact).sum())
         off += k_off
         plain_off += p_off
-        flops, wbytes = _stage_cost(x, [w])
-        b_ms, b_by = bound(nbytes(x, want) + wbytes, flops, torch.bfloat16)
-        xx = x
-        b, cin, h, wd = x.shape
-        s, c2 = w["stride"], w["pw1_w"].shape[1]
-        row = dict(block=i, stride=s, shape=tuple(x.shape),
-                   tile=block_tile(s, cin, c2, b, (h - 1) // s + 1,
-                                   (wd - 1) // s + 1, torch.bfloat16),
-                   ms=time_ms(lambda: _launch_block(lib, xx, w), queued=True),
-                   bound_ms=b_ms, ulps=ulps, bit_equal_share=same / n,
+        row = dict(block=i, **block_launch_row(lib, x, w, want,
+                                               torch.bfloat16, iters),
+                   ulps=ulps, bit_equal_share=same / n,
                    off_f64_share=k_off / n, plain_off_f64_share=p_off / n)
-        print(f"    {tag} block {i} (stride {s}, tile {row['tile']}): "
-              f"{row['ms']:.4f} ms, bound {b_ms * 1e3:.2f} us ({b_by}), "
-              f"{ulps:.3g} ulps of max|ref|, {same / n:.6f} bit-equal; off "
-              f"the f64-sum witness: kernel {k_off / n:.6f}, plain "
-              f"{p_off / n:.6f}")
+        if verbose:
+            print(f"    {tag} block {i} (stride {row['stride']}, tile "
+                  f"{row['tile']}): {row['ms']:.4f} ms, bound "
+                  f"{row['bound_ms'] * 1e3:.2f} us ({row['bound_by']}), "
+                  f"{ulps:.3g} ulps of max|ref|, {same / n:.6f} bit-equal; "
+                  f"off the f64-sum witness: kernel {k_off / n:.6f}, plain "
+                  f"{p_off / n:.6f}")
         launches.append(row)
         x = want
     print(f"  {tag}: blocks within {worst:.3g} bf16 ulps of max|ref| of the "
@@ -2153,6 +2178,482 @@ def phase_train_cli(voc_root: str, tmp: str, images_np, bare: dict) -> dict:
                 h2d_bytes=nbytes(*pinned), exports=exports)
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the serving tools, and both kernels at their shapes
+# ---------------------------------------------------------------------------
+
+# the TTA views' sizes (utils/tta.py's default scale range), each run at
+# batch TTA_BATCH; SIZE runs at batch 1 too (cli.demo, the reference
+# protocol)
+TTA_SIZES = tuple(range(320, 641, 32))
+TTA_BATCH = 8
+TTA_VIEWS = 2 * len(TTA_SIZES)
+# ragged request sizes fed to the bucketed predictor, and the batch of the
+# unpadded run each image's detections are held to
+RAGGED = (1, 5, 33, 70)
+REF_BATCH = 32
+TEST_IMAGES = 8
+DEMO_IMAGES, DEMO_FRAMES = 4, 24
+BENCH_ITERS = 20
+
+
+def check_blocks_f32(tag, x, blocks):
+    """Each block's f32 kernel against the plain block on the plain chain's
+    input (check_close), with its tile, ms per launch and bound; then the
+    whole stage as phase 2 holds it: check_close, and against the stage in
+    f64 within 4x cuDNN f32's error. → (the plain stage output, the largest
+    error, one row per launch)."""
+    from yolo_nano_tpu_torch.ops.kernels.fused_stage import (
+        _launch_block, _lib, block_plain, fused_stage, fused_stage_plain)
+
+    lib = _lib(torch.float32)
+    x0, err, rows = x, 0.0, []
+    for i, w in enumerate(blocks):
+        want = block_plain(x, w)
+        err = max(err, check_close(f"{tag} block {i}",
+                                   _launch_block(lib, x, w), want,
+                                   torch.float32, verbose=False))
+        rows.append(dict(block=i, **block_launch_row(lib, x, w, want,
+                                                     torch.float32, 10)))
+        x = want
+    got = fused_stage(x0, blocks)
+    err = max(err, check_close(tag, got, x, torch.float32, verbose=False))
+    blocks64 = [{k: v if k == "stride" else v.double() for k, v in b.items()}
+                for b in blocks]
+    check_against_f64(tag, fused_stage_plain(x0.double(), blocks64), got, x)
+    return x, err, rows
+
+
+def check_heads(tag, model, size, batch, dtype, gen):
+    """Both dw→pw pairs of each head level at this size on a seeded input,
+    the kernel against its plain version: f32 by check_close and within 4x
+    cuDNN f32's error against f64; bf16 within BF16_BLOCK_ULPS of max|ref|
+    and BF16_BLOCK_EQUAL bit-equal. Pair 0 of each level is timed. → one
+    row per level."""
+    from yolo_nano_tpu_torch.ops.kernels.fused_conv import (fused_dw_pw,
+                                                            fused_dw_pw_plain,
+                                                            tile_shape)
+
+    rows = []
+    for level, hw in enumerate((size // 8, size // 16, size // 32)):
+        pairs = getattr(model, f"head{level}")._pairs()
+        c, cout = pairs[0][2].shape
+        x = torch.randn(batch, hw, hw, c, device=gen.device, generator=gen
+                        ).to(dtype).permute(0, 3, 1, 2)
+        err = ulps = 0.0
+        equal = 1.0
+        for dw_w, dw_b, pw_w, pw_b in pairs:
+            got = fused_dw_pw(x, dw_w, dw_b, pw_w, pw_b)
+            want = fused_dw_pw_plain(x, dw_w, dw_b, pw_w, pw_b)
+            where = f"{tag} head{level} {hw}x{hw}"
+            if dtype == torch.float32:
+                err = max(err, check_close(where, got, want, dtype,
+                                           verbose=False))
+                check_against_f64(where, dw_pw_f64(
+                    x, dw_w, dw_b, pw_w, pw_b, "leaky", "leaky"), got, want)
+            else:
+                u = bf16_ulps(got, want)[0]
+                same = float((got == want).float().mean())
+                if u > BF16_BLOCK_ULPS or same < BF16_BLOCK_EQUAL:
+                    raise AssertionError(f"{where}: bf16 kernel {u:g} ulps "
+                                         f"of max|ref|, {same:.5f} bit-equal")
+                ulps, equal = max(ulps, u), min(equal, same)
+                err = max(err, (got.float() - want.float()).abs().max().item())
+        dw_w, dw_b, pw_w, pw_b = pairs[0]
+        out = fused_dw_pw(x, dw_w, dw_b, pw_w, pw_b)
+        b_ms, b_by = bound(nbytes(x, dw_w, dw_b, pw_w, pw_b, out),
+                           batch * hw * hw * (2 * 9 * c + 2 * c * cout), dtype)
+        rows.append(dict(
+            level=level, side=hw, tile=tile_shape(batch, hw, hw, c, cout,
+                                                  x.element_size()),
+            ms=time_ms(lambda: fused_dw_pw(x, dw_w, dw_b, pw_w, pw_b),
+                       iters=10, queued=True),
+            bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
+            **({} if dtype == torch.float32 else
+               dict(ulps=ulps, bit_equal_share=equal))))
+    return rows
+
+
+def phase_kernels_at_sizes(model, images_np):
+    """Every stage block and head pair of a folded model (f32 or bf16) at
+    each TTA size at batch TTA_BATCH and at SIZE at batch 1, on the
+    model's own stage inputs for the rendered scenes resized as TTA resizes
+    them, against their plain versions; prints each shape's tiles, ms per
+    forward and bound. → one row per shape."""
+    from yolo_nano_tpu_torch.ops.kernels.fused_stage import prepare_stage
+    from yolo_nano_tpu_torch.ops.nn import max_pool_3x3_s2, resize_images
+
+    dtype = next(model.parameters()).dtype
+    label = str(dtype)[6:]
+    names = ("stage2", "stage3", "stage4")
+    stages = [prepare_stage(getattr(model.backbone, n)) for n in names]
+    scenes = torch.from_numpy(images_np[:TTA_BATCH]).cuda()
+    gen = torch.Generator(device=scenes.device).manual_seed(8)
+    print(f"[8] {label} kernels against their plain versions at the TTA "
+          f"sizes (batch {TTA_BATCH}) and at {SIZE} px batch 1")
+    rows = []
+    with torch.inference_mode():
+        for size, batch in [(s, TTA_BATCH) for s in TTA_SIZES] + [(SIZE, 1)]:
+            x = scenes[:batch]
+            if x.shape[1] != size:
+                x = resize_images(x, size)
+            x = max_pool_3x3_s2(model.backbone.conv1(
+                x.to(dtype).permute(0, 3, 1, 2))).contiguous(
+                    memory_format=torch.channels_last)
+            tag = f"{label} {size} px b{batch}"
+            launches, err, ulps, equal = [], 0.0, 0.0, 1.0
+            for name, blocks in zip(names, stages):
+                if dtype == torch.float32:
+                    x, e, ls = check_blocks_f32(f"{tag} {name}", x, blocks)
+                else:
+                    x, errors, ls = check_blocks_bf16(
+                        f"{tag} {name}", x, blocks, verbose=False, iters=10)
+                    e = errors["max_abs_err"]
+                    ulps = max(ulps, errors["max_ulps"])
+                    equal = min(equal, min(r["bit_equal_share"] for r in ls))
+                err = max(err, e)
+                launches += ls
+            heads = check_heads(tag, model, size, batch, dtype, gen)
+            row = dict(
+                dtype=label, size=size, batch=batch,
+                stage_tiles=[r["tile"] for r in launches],
+                stage_ms=sum(r["ms"] for r in launches),
+                stage_bound_ms=sum(r["bound_ms"] for r in launches),
+                stage_max_abs_err=err, stage_launches=launches,
+                head_tiles=[r["tile"] for r in heads],
+                head_ms=2 * sum(r["ms"] for r in heads),
+                head_bound_ms=2 * sum(r["bound_ms"] for r in heads),
+                head_max_abs_err=max(r["max_abs_err"] for r in heads),
+                heads=heads)
+            if dtype == torch.bfloat16:
+                row.update(stage_max_ulps=ulps, stage_min_bit_equal=equal,
+                           head_max_ulps=max(r["ulps"] for r in heads),
+                           head_min_bit_equal=min(r["bit_equal_share"]
+                                                  for r in heads))
+            print(f"  {tag}: fused_stage {row['stage_ms']:.4f} ms per "
+                  f"forward, bound {row['stage_bound_ms']:.4f} ms, tiles "
+                  f"{'/'.join(str(t) for t in row['stage_tiles'])}; "
+                  f"fused_dw_pw {row['head_ms']:.4f} ms, bound "
+                  f"{row['head_bound_ms']:.4f} ms, tiles "
+                  + ", ".join(f"{r['side']}²: {r['tile'][0]}x{r['tile'][1]}"
+                              for r in heads)
+                  + f"; max abs err stages {err:.3g}, heads "
+                  f"{row['head_max_abs_err']:.3g}"
+                  + ("" if dtype == torch.float32 else
+                     f"; bf16 ulps stages {ulps:.3g}, heads "
+                     f"{row['head_max_ulps']:.3g}, least bit-equal "
+                     f"{min(equal, row['head_min_bit_equal']):.5f}"))
+            rows.append(row)
+    return rows
+
+
+def tile_invariance(model, images_np) -> dict:
+    """Whether the kernels give an image the same bits whatever its batch:
+    each stage (on the plain chain's input) and each head pair at SIZE, the
+    first image alone (batch 1) against its row of batch TTA_BATCH, whose
+    tiles differ. → {"stage2".., "head0".. : bit-equal}."""
+    from yolo_nano_tpu_torch.ops.kernels.fused_conv import fused_dw_pw
+    from yolo_nano_tpu_torch.ops.kernels.fused_stage import (
+        fused_stage, fused_stage_plain, prepare_stage)
+    from yolo_nano_tpu_torch.ops.nn import max_pool_3x3_s2
+
+    dtype = next(model.parameters()).dtype
+    out = {}
+    with torch.inference_mode():
+        x = torch.from_numpy(images_np[:TTA_BATCH]).cuda().to(dtype)
+        x = max_pool_3x3_s2(model.backbone.conv1(x.permute(0, 3, 1, 2))
+                            ).contiguous(memory_format=torch.channels_last)
+        for name in ("stage2", "stage3", "stage4"):
+            blocks = prepare_stage(getattr(model.backbone, name))
+            out[name] = torch.equal(fused_stage(x, blocks)[:1],
+                                    fused_stage(x[:1].contiguous(
+                                        memory_format=torch.channels_last),
+                                        blocks))
+            x = fused_stage_plain(x, blocks)
+        gen = torch.Generator(device=x.device).manual_seed(9)
+        for level, hw in enumerate((SIZE // 8, SIZE // 16, SIZE // 32)):
+            dw_w, dw_b, pw_w, pw_b = getattr(model, f"head{level}")._pairs(
+                )[0]
+            h = torch.randn(TTA_BATCH, hw, hw, pw_w.shape[0], device=x.device,
+                            generator=gen).to(dtype).permute(0, 3, 1, 2)
+            out[f"head{level}"] = torch.equal(
+                fused_dw_pw(h, dw_w, dw_b, pw_w, pw_b)[:1],
+                fused_dw_pw(h[:1], dw_w, dw_b, pw_w, pw_b))
+    print(f"[8] {str(dtype)[6:]} kernels, one image at batch 1 against its "
+          f"row of batch {TTA_BATCH} (other tiles), bit-equal: {out}")
+    return out
+
+
+def agree(tag, got, want, fn) -> dict:
+    """Detections of the kernel path against another run's: f32 slot for
+    slot (check_detections, near ties allowed), bf16 matched
+    (match_detections); with whether they are equal bit for bit."""
+    bits = all(np.array_equal(g, w) for g, w in zip(got, want))
+    if fn.dtype == torch.bfloat16:
+        out = match_detections(got, want, fn.cfg.conf_thresh,
+                               fn.cfg.nms_thresh, **BF16_MATCH)
+    else:
+        out = dict(near_tie_slots=check_detections(tag, got, want,
+                                                   tie_rtol=TIE_RTOL))
+    b, s, _, v = got
+    if not (np.isfinite(b).all() and np.isfinite(s).all()) or (
+            b[v] < 0).any() or (b[v] > 1).any():
+        raise AssertionError(f"{tag}: non-finite boxes or boxes outside "
+                             "[0, 1]")
+    return dict(out, bit_equal=bits, detections=int(v.sum()))
+
+
+def phase_tta(images_np, npz):
+    """tta_predictor on a folded artifact's model at the serving operating
+    point, TTA_BATCH scenes: 22 forwards of 16 stage blocks and 6 head
+    pairs, detections against the plain path's, img/s."""
+    from yolo_nano_tpu_torch.serving import load_predictor
+    from yolo_nano_tpu_torch.utils.tta import tta_predictor
+
+    fn = load_predictor(npz, **OPERATING_POINTS["serving"])
+    tta = tta_predictor(fn.model, fn.cfg)
+    bf16 = fn.dtype == torch.bfloat16
+    x = images_np[:TTA_BATCH]
+    tta(x)  # warm-up: cuDNN's algorithms at every size
+    reset_counts()
+    got = tta(x)
+    counts = read_counts()
+    if counts != want_counts(TTA_VIEWS, bf16):
+        raise AssertionError(f"TTA launch counts {counts}, expected "
+                             f"{want_counts(TTA_VIEWS, bf16)}")
+    with plain_kernels():
+        plain = tta(x)
+    out = agree(f"TTA {os.path.basename(npz)}", got, plain, fn)
+    iters = 3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        tta(x)
+    out.update(counts=counts, img_per_s=iters * len(x)
+               / (time.perf_counter() - t0))
+    print(f"[8] TTA ({len(tta.scales)} sizes x 2 flips) on "
+          f"{os.path.basename(npz)}, {len(x)} scenes: launches {counts}; "
+          f"{out['img_per_s']:.1f} img/s; against the plain path "
+          f"{ {k: v for k, v in out.items() if k not in ('counts',)} }")
+    return out
+
+
+def phase_cli_eval_tta(coco_root):
+    """cli.eval.main --tta on phase 6's scenes (COCO layout) with the f32
+    artifact: the kernel path's AP equal to the plain path's within
+    EVAL_F32_AP_ATOL; 22 forwards a batch."""
+    batches = -(-EVAL_IMAGES // BATCH)
+    argv = ["-d", "coco-val", "--root", coco_root, "--img_size", str(SIZE),
+            "--batch_size", str(BATCH), "--weight", NPZ, "--tta"]
+    print(f"[8] cli.eval --tta on the f32 artifact, {EVAL_IMAGES} scenes")
+    got, want, _, t = run_cli_eval("f32 artifact --tta", argv, False,
+                                   batches * TTA_VIEWS)
+    gap = ap_close("f32 artifact --tta", got.stats, want.stats,
+                   EVAL_F32_AP_ATOL)
+    return dict(t, ap_gap=gap, stats=got.stats, plain_stats=want.stats)
+
+
+def phase_buckets(images_np, npz):
+    """load_predictor(batch_buckets="auto") at the serving operating point
+    on ragged requests of RAGGED scenes: each image's detections against
+    its row of unpadded batch-REF_BATCH runs; launches; img/s per request
+    size; the load's seconds (every bucket run once)."""
+    from yolo_nano_tpu_torch.serving import load_predictor
+
+    point = OPERATING_POINTS["serving"]
+    plain_fn = load_predictor(npz, **point)
+    n = max(RAGGED)
+    parts = [plain_fn(images_np[lo:lo + REF_BATCH])
+             for lo in range(0, n, REF_BATCH)]
+    ref = tuple(np.concatenate(p) for p in zip(*parts))
+    t0 = time.perf_counter()
+    fn = load_predictor(npz, batch_buckets="auto", **point)
+    load_s = time.perf_counter() - t0
+    bf16 = fn.dtype == torch.bfloat16
+    reset_counts()
+    outs = {k: fn(images_np[:k]) for k in RAGGED}
+    counts = read_counts()
+    forwards = sum(-(-k // fn.buckets[-1]) for k in RAGGED)
+    if counts != want_counts(forwards, bf16):
+        raise AssertionError(f"bucketed launch counts {counts}, expected "
+                             f"{want_counts(forwards, bf16)}")
+    with plain_kernels():
+        plain_ref = [plain_fn(images_np[lo:lo + REF_BATCH])
+                     for lo in range(0, n, REF_BATCH)]
+        plain_ref = tuple(np.concatenate(p) for p in zip(*plain_ref))
+        plain_outs = {k: fn(images_np[:k]) for k in RAGGED}
+    out = dict(buckets=fn.buckets, load_s=load_s, counts=counts,
+               requests={})
+    for k, got in outs.items():
+        r = agree(f"buckets, {k} scenes", got, tuple(t[:k] for t in ref), fn)
+        # the same on the plain path: cuDNN alone, batch against batch
+        r["plain_path_bit_equal"] = all(np.array_equal(g, w[:k]) for g, w in
+                                        zip(plain_outs[k], plain_ref))
+        iters = 3
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn(images_np[:k])
+        r["img_per_s"] = iters * k / (time.perf_counter() - t0)
+        out["requests"][k] = r
+    print(f"[8] bucketed load_predictor({os.path.basename(npz)}): buckets "
+          f"{fn.buckets}, loaded in {load_s:.2f} s; launches {counts}; per "
+          "request: " + "; ".join(
+              f"{k}: {r['img_per_s']:.1f} img/s, bit-equal to the unpadded "
+              f"run {r['bit_equal']} (plain path {r['plain_path_bit_equal']})"
+              for k, r in out["requests"].items()))
+    return out
+
+
+@contextlib.contextmanager
+def counted(what: str, forwards: int, bf16: bool):
+    """Launch counts of the block's run, which must be `forwards` forwards
+    (want_counts); → a dict that receives them."""
+    got = {}
+    reset_counts()
+    yield got
+    got.update(read_counts())
+    if got != want_counts(forwards, bf16):
+        raise AssertionError(f"{what}: launch counts {got}, expected "
+                             f"{want_counts(forwards, bf16)}")
+
+
+def phase_cli_tools(tmp, coco_root):
+    """cli.test (both artifacts; the f32 one also with --tta), cli.demo in
+    image mode on a folder and in video mode on an XVID .avi (both
+    artifacts), cli.benchmark in f32 and bf16 on phase 6's COCO scenes
+    (--reference_protocol; its FLOPs lines equal to flops_and_params on
+    the same tree). Each run's launches match its forwards."""
+    import io
+    import sys
+
+    import cv2
+
+    from yolo_nano_tpu_torch.cli import benchmark as cli_benchmark
+    from yolo_nano_tpu_torch.cli import demo as cli_demo
+    from yolo_nano_tpu_torch.cli import test as cli_test
+    from yolo_nano_tpu_torch.config import config_from_json
+    from yolo_nano_tpu_torch.convert import load_npz, widen_tree
+    from yolo_nano_tpu_torch.utils.flops import flops_and_params
+
+    out = dict(test={}, demo={}, benchmark={})
+    val = os.path.join(coco_root, "val2017")
+    for npz, tta in ((NPZ, False), (NPZ, True), (NPZ_05X, False)):
+        key = os.path.basename(npz)[:-4] + ("_tta" if tta else "")
+        dst = os.path.join(tmp, "test_" + key)
+        bf16 = npz == NPZ_05X
+        t0 = time.perf_counter()
+        with counted(f"cli.test {key}",
+                     TEST_IMAGES * (TTA_VIEWS if tta else 1), bf16) as c:
+            n = cli_test.main(["-d", "coco", "--root", coco_root, "--weight",
+                               npz, "--num_images", str(TEST_IMAGES),
+                               "--save_folder", dst]
+                              + (["--tta"] if tta else []))
+        files = sorted(os.listdir(dst))
+        if n != TEST_IMAGES or files != [f"{i:06d}.jpg"
+                                         for i in range(TEST_IMAGES)]:
+            raise AssertionError(f"cli.test {key} wrote {files}")
+        out["test"][key] = dict(counts=c, images=n,
+                                seconds=time.perf_counter() - t0)
+
+    images = sorted(os.listdir(val))
+    folder = os.path.join(tmp, "demo_in")
+    os.makedirs(folder, exist_ok=True)
+    for name in images[:DEMO_IMAGES]:
+        cv2.imwrite(os.path.join(folder, name),
+                    cv2.imread(os.path.join(val, name)))
+    video = os.path.join(tmp, "demo_in.avi")
+    writer = cv2.VideoWriter(video, cv2.VideoWriter_fourcc(*"XVID"), 10,
+                             (480, 360))
+    if not writer.isOpened():
+        raise AssertionError("cv2.VideoWriter does not open with XVID")
+    for name in images[:DEMO_FRAMES]:
+        writer.write(cv2.resize(cv2.imread(os.path.join(val, name)),
+                                (480, 360)))
+    writer.release()
+    for npz in (NPZ, NPZ_05X):
+        bf16 = npz == NPZ_05X
+        key = os.path.basename(npz)[:-4]
+        dst = os.path.join(tmp, "demo_" + key)
+        with counted(f"cli.demo image {key}", DEMO_IMAGES, bf16) as c_img:
+            img = cli_demo.main(["--mode", "image", "--path", folder,
+                                 "--weight", npz, "--path_to_save", dst])
+        with counted(f"cli.demo video {key}", DEMO_FRAMES, bf16) as c_vid:
+            vid = cli_demo.main(["--mode", "video", "--path", video,
+                                 "--weight", npz, "--path_to_save", dst])
+        if img["frames"] != DEMO_IMAGES or vid["frames"] != DEMO_FRAMES or (
+                not os.path.getsize(os.path.join(dst, "demo_out.avi"))):
+            raise AssertionError(f"cli.demo {key}: {img['frames']} images, "
+                                 f"{vid['frames']} frames")
+        lat = np.asarray(vid["latency_ms"])
+        out["demo"][key] = dict(
+            counts_image=c_img, counts_video=c_vid,
+            frame_p50_ms=float(np.percentile(lat, 50)),
+            frame_p99_ms=float(np.percentile(lat, 99)),
+            fps=1e3 / float(lat.mean()))
+
+    for npz, dtype in ((NPZ, "float32"), (NPZ_05X, "bfloat16")):
+        key = f"{os.path.basename(npz)[:-4]}_{dtype}"
+        printed = Tee(sys.stdout)
+        reset_counts()
+        with contextlib.redirect_stdout(printed):
+            r = cli_benchmark.main(["--root", coco_root, "--weight", npz,
+                                    "--dtype", dtype, "--iters",
+                                    str(BENCH_ITERS), "--reference_protocol"])
+        counts = read_counts()
+        # the candidate count, the warm-up, the loop, 10 p50 calls, the
+        # reference protocol's warm-up and 102 calls
+        forwards = r["device_batches"] + 1 + BENCH_ITERS + 10 + 103
+        if counts != want_counts(forwards, dtype == "bfloat16"):
+            raise AssertionError(f"cli.benchmark {key}: launch counts "
+                                 f"{counts}, expected {forwards} forwards")
+        tree, meta = load_npz(npz)
+        cpu = io.StringIO()
+        with contextlib.redirect_stdout(cpu):
+            flops_and_params(widen_tree(tree), None, config_from_json(meta),
+                             SIZE)
+        lines = [ln for ln in "".join(printed.text).splitlines()
+                 if ln.startswith(("FLOPs", "GMACs", "Params"))]
+        if lines != cpu.getvalue().splitlines():
+            raise AssertionError(f"cli.benchmark {key}: FLOPs lines {lines}, "
+                                 f"on the CPU {cpu.getvalue().splitlines()}")
+        out["benchmark"][key] = dict(r, counts=counts, flops_lines=lines)
+    print("[8] CLIs: " + "; ".join(
+        [f"cli.test {k} {v['images']} images in {v['seconds']:.2f} s"
+         for k, v in out["test"].items()]
+        + [f"cli.demo {k} video frame p50 {v['frame_p50_ms']:.2f} ms, p99 "
+           f"{v['frame_p99_ms']:.2f} ms, {v['fps']:.1f} FPS"
+           for k, v in out["demo"].items()]
+        + [f"cli.benchmark {k} {v['fps']:.1f} img/s at batch {v['batch']}, "
+           f"p50 {v['p50_ms']:.2f} ms, reference protocol "
+           f"{v['reference_fps']:.1f} FPS" for k, v in
+           out["benchmark"].items()]))
+    return out
+
+
+def phase_serving_tools(tmp, images_np):
+    """Phase 8 on phase 6's sets under tmp: both kernels of both artifacts
+    at the TTA sizes and batch 1, TTA, cli.eval --tta, bucketed serving,
+    the CLIs. → (the numbers, the launches of each path by artifact)."""
+    from yolo_nano_tpu_torch.convert import load_model
+
+    coco_root = os.path.join(tmp, "coco")
+    t0 = time.perf_counter()
+    out = dict(kernel_sizes={}, tile_invariance={}, tta={}, buckets={})
+    for npz in (NPZ, NPZ_05X):
+        model = load_model(npz)[0].cuda()
+        key = os.path.basename(npz)[:-4]
+        out["kernel_sizes"][key] = phase_kernels_at_sizes(model, images_np)
+        out["tile_invariance"][key] = tile_invariance(model, images_np)
+        del model
+        out["tta"][key] = phase_tta(images_np, npz)
+        out["buckets"][key] = phase_buckets(images_np, npz)
+    out["cli_eval_tta"] = phase_cli_eval_tta(coco_root)
+    out["cli"] = phase_cli_tools(tmp, coco_root)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"[8] serving tools: {out['seconds']:.1f} s")
+    return out
+
+
 def kernel_row(name, source, rows, per_fwd, launches, replaces):
     """One JSON row per kernel: its main-path calls of one forward summed
     (the two head pairs of a level share a shape, so one is timed twice)."""
@@ -2228,6 +2729,8 @@ def main():
         eval_stats, voc_root = phase_eval(
             train_state, config_from_json(load_npz(NPZ)[1]), tmp)
         cli_stats = phase_train_cli(voc_root, tmp, images_np, train_stats)
+        serving = phase_serving_tools(
+            tmp, render_scenes(max(RAGGED), SIZE, seed=8))
     print(json.dumps({"main_path": stats, "batch": BATCH, "size": SIZE,
                       "training": train_stats,
                       "fused_dw_pw_per_shape": dw_rows,
@@ -2237,7 +2740,8 @@ def main():
                       "fused_stage_bf16_05x_per_stage": stage_rows05,
                       "make_predict_fn_bf16_1x": stats1x_bf16,
                       "make_predict_fn_bf16_wide": stats_wide,
-                      "eval": eval_stats, "train_cli": cli_stats}))
+                      "eval": eval_stats, "train_cli": cli_stats,
+                      "serving_tools": serving}))
     # the main path runs the heads in f32 with leaky/leaky
     main_dw = [r for r in dw_rows if r["dtype"] == "float32"
                and r["acts"] == "leaky/leaky"]
@@ -2279,6 +2783,22 @@ def main():
                 for h in r["eval_hook_counts"])
         row["launches_export_" + dtype] = cli_stats["exports"][dtype][
             "counts"][row["name"]]
+    for row in kernels:  # phase 8, each path alone, on its dtype's artifact
+        name = row["name"]
+        key = "bench_coco416" + ("_05x" if name.endswith("_bf16") else "")
+        cli = serving["cli"]
+        row["launches_tta"] = serving["tta"][key]["counts"][name] + sum(
+            r["counts"][name] for k, r in cli["test"].items()
+            if k.startswith(key + "_tta"))
+        if key == "bench_coco416":
+            row["launches_tta"] += serving["cli_eval_tta"]["counts"][name]
+        row["launches_batch1"] = cli["test"][key]["counts"][name] + sum(
+            cli["demo"][key][c][name] for c in ("counts_image",
+                                                "counts_video"))
+        row["launches_buckets"] = serving["buckets"][key]["counts"][name]
+        row["launches_benchmark"] = next(
+            r["counts"][name] for k, r in cli["benchmark"].items()
+            if k.startswith(key + "_"))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

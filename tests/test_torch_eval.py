@@ -447,18 +447,18 @@ def test_cli_eval_on_a_port_checkpoint(synthetic_voc, voc_checkpoints,
 
 
 def test_cli_eval_refuses(synthetic_voc, voc_checkpoints):
-    """--ema on a state saved without EMA exits with the JAX CLI's message;
-    --tta is not ported; with no CUDA device and no --device it raises."""
+    """--ema on a state saved without EMA exits with the JAX CLI's message
+    (--tta too: it reads the same weights); with no CUDA device and no
+    --device it raises."""
     import torch
 
     from yolo_nano_tpu_torch.cli import eval as cli_eval
 
     root, _ = synthetic_voc
     weight = voc_checkpoints[1][False][0]
-    with pytest.raises(SystemExit, match="carries no EMA state"):
-        _cli(root, weight, "--ema")
-    with pytest.raises(NotImplementedError, match="item 15"):
-        _cli(root, weight, "--tta")
+    for extra in ((), ("--tta",)):
+        with pytest.raises(SystemExit, match="carries no EMA state"):
+            _cli(root, weight, "--ema", *extra)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             cli_eval.main(["-d", "voc", "--root", root, "--weight", weight,

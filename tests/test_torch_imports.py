@@ -65,3 +65,13 @@ def test_port_files_cover_the_training_cli_slice():
     for name in ("cli/train.py", "cli/export.py",
                  "tools/convert_shufflenetv2.py"):
         assert name in got, name
+
+
+def test_port_files_cover_the_serving_tools_slice():
+    """The walk reaches TTA, the FLOPs report, the serving CLIs, the anchor
+    k-means and the batch-table tool."""
+    got = {os.path.relpath(p, PORT) for p in _port_files()}
+    for name in ("utils/tta.py", "utils/flops.py", "cli/test.py",
+                 "cli/demo.py", "cli/benchmark.py", "cli/kmeans_anchor.py",
+                 "tools/autotune_batch.py", "serving.py", "ops/nms.py"):
+        assert name in got, name

@@ -1,11 +1,13 @@
-"""Shared CLI plumbing: `build_config`, the per-dataset model config, and
-`make_predict_fn`, which makes a batched predict function (the JAX
-package's `cli/common.py`; of `make_predict_fn` its single-device
-branch)."""
+"""Shared CLI plumbing: `build_config`, the per-dataset model config,
+`make_predict_fn`, which makes a batched predict function, the class names
+and box drawing (the JAX package's `cli/common.py`; of `make_predict_fn`
+its single-device branch)."""
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Sequence
+
+import numpy as np
 
 from yolo_nano_tpu_torch.config import (
     MULTI_ANCHOR_SIZE,
@@ -29,6 +31,61 @@ def build_config(dataset: str, backbone: str = "1.0x",
     base.update(backbone=backbone, conf_thresh=conf_thresh,
                 nms_thresh=nms_thresh, diou_nms=diou_nms, **overrides)
     return YoloNanoConfig(**base)
+
+
+def class_names_for(dataset: str) -> Sequence[str]:
+    """Display names by class index: VOC's 20, or COCO's 80 in the order
+    of their sorted category ids (as COCODataset maps them)."""
+    from yolo_nano_tpu_torch.data.coco import (COCO_80_CAT_IDS,
+                                               COCO_CLASS_LABELS)
+    from yolo_nano_tpu_torch.data.voc import VOC_CLASSES
+
+    if dataset == "voc":
+        return VOC_CLASSES
+    return [COCO_CLASS_LABELS[c] for c in COCO_80_CAT_IDS]
+
+
+def draw_detections(img_bgr: np.ndarray, boxes: np.ndarray,
+                    scores: np.ndarray, classes: np.ndarray,
+                    class_names: Sequence[str],
+                    vis_thresh: float = 0.3) -> np.ndarray:
+    """A copy of a BGR image with each detection scoring vis_thresh or more
+    drawn: its box and "name: score" in its class's colour."""
+    import cv2
+
+    rng = np.random.default_rng(0)
+    colors = rng.integers(0, 255, (len(class_names), 3)).tolist()
+    out = img_bgr.copy()
+    for b, s, c in zip(boxes, scores, classes):
+        if s < vis_thresh:
+            continue
+        c = int(c)
+        x1, y1, x2, y2 = (int(v) for v in b)
+        color = tuple(int(v) for v in colors[c % len(colors)])
+        cv2.rectangle(out, (x1, y1), (x2, y2), color, 2)
+        label = f"{class_names[c]}: {s:.2f}"
+        th = max(y1 - 6, 10)
+        cv2.putText(out, label, (x1, th), cv2.FONT_HERSHEY_SIMPLEX, 0.4,
+                    color, 1, lineType=cv2.LINE_AA)
+    return out
+
+
+def card_line(dev) -> str:
+    """The card's `nvidia-smi --query-gpu=name,power.limit` line for a CUDA
+    device (every number measured on it is stated with it); else the
+    device's name."""
+    import subprocess
+
+    import torch
+
+    dev = torch.device(dev)
+    if dev.type != "cuda":
+        return str(dev)
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader", "-i",
+                          str(dev.index or 0)],
+                         capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
 
 
 def make_predict_fn(params, stats, cfg: YoloNanoConfig, input_size: int,

@@ -11,7 +11,10 @@ bf16), or a folded `.npz` artifact (`convert.save_npz`), evaluated through
 `serving.load_predictor` in the artifact's dtype at its own image size. An
 orbax checkpoint written by the JAX package cannot be read without JAX;
 carry such a state across with `convert.train_state_from_jax` and save it
-with `CheckpointManager`.
+with `CheckpointManager`. `--tta` predicts with multi-scale + flip TTA
+(`utils.tta`): a checkpoint's weights unfolded in f32 through
+`make_tta_predict`, as the JAX CLI runs it, an artifact's folded model in
+its dtype through `tta_predictor`.
 
 The model runs on CUDA unless `--device` names another device; without a
 CUDA device and without `--device`, it raises.
@@ -46,7 +49,9 @@ def parse_args(argv=None):
     p.add_argument("--backbone", default="1.0x")
     p.add_argument("--ema", action="store_true", default=False,
                    help="evaluate the EMA weights from a train checkpoint")
-    p.add_argument("--tta", action="store_true", default=False)
+    p.add_argument("--tta", action="store_true", default=False,
+                   help="multi-scale (320-640 px) + flip test-time "
+                        "augmentation with a merged NMS")
     p.add_argument("--dump_dets", default=None, metavar="DIR",
                    help="write detection artifacts for error analysis: VOC → "
                         "per-class VOCdevkit results .txt + detections.pkl "
@@ -102,27 +107,40 @@ def config_from_args(args):
 
 def build_predict_fn(args, cfg):
     """The predict function of --weight: a folded .npz artifact through
-    load_predictor, a checkpoint directory through make_predict_fn."""
+    load_predictor (with --tta, its model through tta_predictor), a
+    checkpoint directory through make_predict_fn (with --tta,
+    make_tta_predict). The eval CLI's flags that another CLI lacks
+    (--ema, --tta, --diou_nms, --pre_topk, --max_det) are left at their
+    defaults."""
     from yolo_nano_tpu_torch.cli.common import make_predict_fn
     from yolo_nano_tpu_torch.serving import load_predictor
+    from yolo_nano_tpu_torch.utils.tta import make_tta_predict, tta_predictor
 
+    ema, tta = getattr(args, "ema", False), getattr(args, "tta", False)
+    overrides = dict(conf_thresh=args.conf_thresh, nms_thresh=args.nms_thresh,
+                     diou_nms=getattr(args, "diou_nms", None),
+                     pre_topk=getattr(args, "pre_topk", None),
+                     max_det=getattr(args, "max_det", None))
     if os.path.isfile(args.weight):
-        if args.ema:
+        if ema:
             raise SystemExit("--ema needs a train checkpoint directory; "
                              f"{args.weight} is a folded artifact")
-        fn = load_predictor(args.weight, device=args.device,
-                            conf_thresh=args.conf_thresh,
-                            nms_thresh=args.nms_thresh,
-                            diou_nms=args.diou_nms, pre_topk=args.pre_topk,
-                            max_det=args.max_det)
-        if fn.input_size != args.img_size:
+        fn = load_predictor(args.weight, device=args.device, **overrides)
+        if not tta and fn.input_size != args.img_size:
             raise SystemExit(f"{args.weight} predicts at {fn.input_size} px; "
                              f"pass --img_size {fn.input_size}")
         if args.dataset == "voc" and fn.cfg.num_classes != cfg.num_classes:
             raise SystemExit(f"{args.weight} has {fn.cfg.num_classes} "
                              f"classes; VOC has {cfg.num_classes}")
+        if tta:
+            return tta_predictor(fn.model, fn.cfg,
+                                 nms_thresh=args.nms_thresh)
         return fn
-    params, stats = load_weights(args.weight, cfg, args.ema)
+    params, stats = load_weights(args.weight, cfg, ema)
+    if tta:
+        return make_tta_predict(params, stats, cfg,
+                                nms_thresh=args.nms_thresh,
+                                device=args.device)
     return make_predict_fn(params, stats, cfg, args.img_size,
                            device=args.device)
 
@@ -131,10 +149,6 @@ def main(argv=None):
     """Evaluate --weight on the dataset; → the evaluator, whose `map` (VOC)
     or `stats` (COCO) hold the result."""
     args = parse_args(argv)
-    if args.tta:
-        raise NotImplementedError(
-            "--tta: test-time augmentation (the JAX package's "
-            "utils/tta.py, ROADMAP Queue 1 item 15) is not ported yet")
     from yolo_nano_tpu_torch.evaluation.evaluator import (COCOEvaluator,
                                                           VOCEvaluator)
     from yolo_nano_tpu_torch.models.yolo_nano import set_full_f32

@@ -23,10 +23,11 @@ the eval hook (`make_predict_fn` at its defaults: BN folded, bf16, so on
 the card both bf16 kernels) must leave it as it found it, and the CLI
 raises if it does not.
 
-Not ported: --device_augment (the in-graph augmentation, ROADMAP Queue 1
-item 14) and --coordinator (multi-process training, item 17) raise; the
-FLOPs report (`utils/flops.py`, item 15) is not printed, only the parameter
-count. --pretrained reads a backbone `.npz` written by
+At the start it prints the FLOPs and parameter report of the model at
+--img_size (`utils.flops.flops_and_params`, counted on the CPU). Not
+ported: --device_augment (the in-graph augmentation, ROADMAP Queue 1 item
+14) and --coordinator (multi-process training, item 17) raise.
+--pretrained reads a backbone `.npz` written by
 `yolo_nano_tpu_torch.tools.convert_shufflenetv2`.
 """
 
@@ -186,6 +187,7 @@ def main(argv=None):
                                            make_optimizer, make_train_step,
                                            warmup_step_schedule)
     from yolo_nano_tpu_torch.utils.checkpoint import CheckpointManager
+    from yolo_nano_tpu_torch.utils.flops import flops_and_params
 
     dev = resolve_device(args.device)
     # training precision, set once: full f32 (TF32 off); the eval hook's
@@ -230,8 +232,9 @@ def main(argv=None):
         # ImageNet-pretrained trunk (reference backbone/shufflenetv2.py:177-180)
         load_pretrained(model, args.pretrained, cfg.backbone)
         print(f"loaded pretrained backbone from {args.pretrained}")
-    n_params = sum(p.numel() for p in model.parameters())
-    print(f"Params              : {n_params / 1e6:.2f} M")
+    flops_and_params(tree_from_named(dict(model.named_parameters())),
+                     tree_from_named(dict(model.named_buffers())), cfg,
+                     args.img_size)
 
     schedule = warmup_step_schedule(args.lr, epoch_size,
                                     wp_epochs=args.wp_epoch,

@@ -139,6 +139,15 @@ def flatten_tree(tree, prefix: str = "") -> dict:
     return out
 
 
+def widen_tree(tree):
+    """A tree's leaves as f32 numpy arrays (bf16 leaves widened, which is
+    exact); None stays None."""
+    if tree is None:
+        return None
+    return unflatten_tree({k: torch.as_tensor(v).float().numpy()
+                           for k, v in flatten_tree(tree).items()})
+
+
 def _listify(node):
     if not isinstance(node, dict):
         return node

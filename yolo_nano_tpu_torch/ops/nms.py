@@ -103,6 +103,23 @@ def nms_on_candidates(top_boxes, top_score, top_cls, *,
     return out
 
 
+def batched_nms(boxes, class_scores, *, conf_thresh: float = 0.001,
+                iou_thresh: float = 0.50, pre_topk: int = 512,
+                max_det: int = 128, diou: bool = False,
+                class_offset: float = 4.0):
+    """The whole postprocess on per-class scores: boxes [B,N,4] corners
+    (normalized; any scale up to class_offset), class_scores [B,N,C] →
+    boxes [B,max_det,4], scores, classes int32, valid (score-sorted,
+    zero-padded). Each box takes its best class, the first on a tie."""
+    class_scores = class_scores.float()
+    cls = torch.argmax(class_scores, dim=2)  # the first index on a tie
+    score = class_scores.amax(dim=2)
+    return batched_nms_scored(boxes, score, cls, conf_thresh=conf_thresh,
+                              iou_thresh=iou_thresh, pre_topk=pre_topk,
+                              max_det=max_det, diou=diou,
+                              class_offset=class_offset)
+
+
 def batched_nms_scored(boxes, score, cls, *, conf_thresh: float = 0.001,
                        iou_thresh: float = 0.50, pre_topk: int = 512,
                        max_det: int = 128, diou: bool = False,

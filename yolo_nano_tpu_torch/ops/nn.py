@@ -183,3 +183,33 @@ def upsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
 
 def downsample2x_nearest(x: torch.Tensor) -> torch.Tensor:
     return x[:, :, ::2, ::2]
+
+
+def _resize_weights(n_in: int, n_out: int, device) -> torch.Tensor:
+    """[n_in, n_out] f32 weights of `jax.image.resize`'s 'bilinear' along
+    one axis: the triangle kernel at half-pixel sample points, widened by
+    the scale when it shrinks (the antialiasing filter), each column
+    normalized to sum 1. The arithmetic is XLA's compiled version of it:
+    the sample points as one fused multiply-add (in f64, rounded once), the
+    division by the kernel's width as a product with its reciprocal."""
+    inv_scale = torch.tensor(1.0 / (n_out / n_in), dtype=torch.float32)
+    kernel_scale = torch.clamp(inv_scale, min=1.0)
+    sample = ((torch.arange(n_out, dtype=torch.float32) + 0.5).double()
+              * inv_scale.double() - 0.5).float()
+    x = (sample[None, :] - torch.arange(n_in, dtype=torch.float32)[:, None]
+         ).abs() * (1.0 / kernel_scale)
+    w = torch.clamp(1.0 - x.abs(), min=0.0)
+    total = w.sum(0, keepdim=True)
+    w = torch.where(total.abs() > 1000.0 * float(np.finfo(np.float32).eps),
+                    w / torch.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return torch.where(inside[None, :], w, 0.0).to(device)
+
+
+def resize_images(images: torch.Tensor, size: int) -> torch.Tensor:
+    """[B,S,S,C] → [B,size,size,C] bilinear, half-pixel centres, with an
+    antialiasing filter when it shrinks: `jax.image.resize` 'bilinear', as
+    its two weight matrices applied along H and W, in the images' dtype."""
+    w = _resize_weights(images.shape[1], size, images.device).to(images.dtype)
+    x = torch.einsum("bhwc,hH->bHwc", images, w)
+    return torch.einsum("bHwc,wW->bHWc", x, w)

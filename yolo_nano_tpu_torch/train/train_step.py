@@ -14,7 +14,6 @@ device when the step is built, so a step makes no host→device copy either.
 from __future__ import annotations
 
 import torch
-import torch.nn.functional as F
 from torch.func import functional_call
 
 from yolo_nano_tpu_torch.config import YoloNanoConfig
@@ -22,20 +21,12 @@ from yolo_nano_tpu_torch.losses.targets import build_targets, target_tables
 from yolo_nano_tpu_torch.models.yolo_nano import (init_yolo_nano,
                                                   loss_from_features)
 from yolo_nano_tpu_torch.ops.decode import make_grids
+from yolo_nano_tpu_torch.ops.nn import resize_images
 from yolo_nano_tpu_torch.serving import resolve_device
 from yolo_nano_tpu_torch.train.state import (SGD, TrainState, ema_decay,
                                              ema_update, select)
 
 LOSS_NAMES = ("loss/obj", "loss/cls", "loss/bbox", "loss/iou")
-
-
-def resize_images(images: torch.Tensor, size: int) -> torch.Tensor:
-    """[B,S,S,C] → [B,size,size,C] bilinear, half-pixel centres, with an
-    antialiasing filter when it shrinks (as `jax.image.resize` 'bilinear')."""
-    x = F.interpolate(images.permute(0, 3, 1, 2), size=(size, size),
-                      mode="bilinear", align_corners=False,
-                      antialias=size < images.shape[1])
-    return x.permute(0, 2, 3, 1)
 
 
 class TrainStep:
