@@ -92,7 +92,14 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
      --tta), cli.demo in image and video mode, cli.benchmark in f32 and
      bf16 with --reference_protocol, its FLOPs lines equal to the CPU's;
      the launches of every run against its forwards;
-  9. a JSON line of kernel numbers, the card line, and the result line.
+  9. the serialized serving graph: each artifact's graph exported on the
+     CPU (serving.export_graph, as cli.export writes it) and replayed by
+     load_predictor on the card at batch 1, 8 and 32 on phase 3's scenes:
+     16 + 6 launches of its dtype's kernels per forward, the detections
+     against the parameter path's (f32 slot for slot, bf16 matched) with
+     the bit-equal share of slots, both paths' predict ms and img/s, and
+     the parameter path's forward ms;
+ 10. a JSON line of kernel numbers, the card line, and the result line.
 
 A bound is the least time the card could take for a kernel's work: the
 larger of its bytes (each input read once, each output written once) over
@@ -107,6 +114,7 @@ and marks the side the kernel's tile rule picks: in f32 at 1.0x, then in
 bf16 at 0.5x (the artifact) and at 1.0x (the f32 model cast); it replaces
 phase 3 and prints no result line. --sweep-dw-pw-tiles does the same for
 fused_dw_pw at each head level over a grid of tiles (columns x rows).
+--graph-only runs phase 9 alone after phase 1, with no result line.
 """
 
 from __future__ import annotations
@@ -170,6 +178,14 @@ BF16_WITNESS_RATIO = 1.5
 # their NMS order between the kernel and the plain path, their scores
 # 0.162 and 0.176 apart: 8% of the larger.)
 BF16_MATCH = dict(score_atol=5e-3, score_rtol=0.1, iou_tol=0.02)
+# a bf16 model's head outputs (phases 5 and 7): the kernel path's RMS
+# distance from the witness (the same forward on the bf16 weights widened
+# to f32, plain versions) within this many times the plain path's, the
+# yardstick of tests/test_torch_bf16.py. Elementwise they cannot be held: a
+# rounding flip early in the forward moves everything after it by its gain
+# through the later layers (1.75 to 2.97 bf16 ulps of each output's
+# max|ref| on a 48-step model whose logits reach 350 to 580).
+BF16_HEAD_RATIO = 2.0
 LOSS_NAMES = ("loss/total", "loss/obj", "loss/cls", "loss/bbox", "loss/iou")
 OPERATING_POINTS = {
     "serving": dict(conf_thresh=0.1, nms_thresh=0.45, pre_topk=128),
@@ -765,11 +781,33 @@ def match_detections(got, want, conf_thresh, nms_thresh, score_atol,
     return counts
 
 
+def head_witness(tag, heads, plain_heads, witness) -> dict:
+    """bf16 head outputs of the kernel and of the plain path, each one's
+    RMS distance from the f32 witness's: the kernel's within
+    BF16_HEAD_RATIO times the plain path's. → {name: (kernel RMS, plain
+    RMS, their ratio)}."""
+    out = {}
+    for name, g, w, ref in zip(("conf", "cls", "txtytwth"), heads,
+                               plain_heads, witness):
+        rms = [(t.float() - ref).square().mean().sqrt().item()
+               for t in (g, w)]
+        out[name] = (rms[0], rms[1], rms[0] / rms[1])
+        if not rms[0] <= BF16_HEAD_RATIO * rms[1]:
+            raise AssertionError(f"{tag}: head output {name} is {rms[0]} off "
+                                 f"the f32 witness, the plain path {rms[1]}")
+    print(f"  {tag}: head outputs' RMS off the f32 witness, kernel / plain: "
+          + "; ".join(f"{n} {k:.4g} / {p:.4g} ({r:.3f}x)"
+                      for n, (k, p, r) in out.items())
+          + f", tolerance {BF16_HEAD_RATIO}x")
+    return out
+
+
 def kernel_vs_plain(fn, images_np):
     """The bf16 forward on the kernel path and on the plain path: each head
     output's share of bit-equal elements and max abs difference (printed,
-    and returned), and [B, 2] each image's pre_topk-th candidate score on
-    each path (a candidate near it is kept on one side only)."""
+    and returned), each one's RMS off the f32 witness (`head_witness`, held
+    to BF16_HEAD_RATIO), and [B, 2] each image's pre_topk-th candidate
+    score on each path (a candidate near it is kept on one side only)."""
     from yolo_nano_tpu_torch.models.yolo_nano import scores_from_features
 
     x = torch.from_numpy(images_np).cuda().to(fn.dtype)
@@ -782,6 +820,8 @@ def kernel_vs_plain(fn, images_np):
             cutoffs.append(torch.topk(score, k, dim=1).values[:, -1].cpu(
                 ).numpy())
             outs.append(heads)
+    with torch.inference_mode(), plain_kernels():
+        witness = copy.deepcopy(fn.model).float()(x.float())
     heads = {}
     for name, g, w in zip(("conf", "cls", "txtytwth"), *outs):
         heads[name] = dict(bit_equal=float((g == w).float().mean()),
@@ -790,6 +830,8 @@ def kernel_vs_plain(fn, images_np):
     print("  head outputs, kernel path against plain path: " + "; ".join(
         f"{n} {h['bit_equal']:.5f} bit-equal, max |diff| "
         f"{h['max_abs_diff']:.3g}" for n, h in heads.items()))
+    for name, r in head_witness("bf16", *outs, witness).items():
+        heads[name]["witness_rms"] = r
     return heads, np.stack(cutoffs, 1)
 
 
@@ -1388,7 +1430,8 @@ def phase_make_predict_fn_bf16(images_np, label="1.0x", tree=None,
     kernel at c2 = 58, 116, 232), whose detections are also matched to the
     plain-version predict's; or a tree and its BN stats given, for 1.5x and
     2.0x (stage 4 at c2 = 352 and 488, the kernel's wide variant). Each
-    block is checked against its plain block; the launches are counted;
+    block is checked against its plain block, the head outputs against the
+    f32 witness (`kernel_vs_plain`); the launches are counted;
     each stage is timed on the kernel and the plain path and bounded."""
     from yolo_nano_tpu_torch.cli.common import make_predict_fn
     from yolo_nano_tpu_torch.config import config_from_json
@@ -1413,10 +1456,10 @@ def phase_make_predict_fn_bf16(images_np, label="1.0x", tree=None,
     if counts != want_counts(1, bf16=True):
         raise AssertionError(f"make_predict_fn {label} launch counts {counts}")
     matches = None
+    heads, cutoffs = kernel_vs_plain(fn, images_np)  # heads to the witness
     if stats is None:
         with plain_kernels():
             plain = fn(images_np)
-        heads, cutoffs = kernel_vs_plain(fn, images_np)
         matches = match_detections(got, plain, cfg.conf_thresh,
                                    cfg.nms_thresh, **BF16_MATCH,
                                    cutoffs=cutoffs)
@@ -1452,7 +1495,8 @@ def phase_make_predict_fn_bf16(images_np, label="1.0x", tree=None,
           f"{bound_ms:.4f} ms (the launches' bounds summed "
           f"{launch_bound_ms:.4f} ms)")
     return dict(counts=counts, forward_ms=fwd_ms, matches=matches,
-                detections=int(got[3].sum()), fused_stage_ms=stage_ms,
+                heads=heads, detections=int(got[3].sum()),
+                fused_stage_ms=stage_ms,
                 fused_stage_plain_ms=stage_plain_ms,
                 fused_stage_bound_ms=bound_ms,
                 fused_stage_launch_bound_ms=launch_bound_ms,
@@ -1864,14 +1908,6 @@ def phase_eval(state, cfg, tmp: str):
 # ---------------------------------------------------------------------------
 
 TRAIN_SCENES = 256
-# a bf16 export's head outputs: the kernel path's RMS distance from the
-# witness (the same forward on the bf16 weights widened to f32, plain
-# versions) within this many times the plain path's, the yardstick of
-# tests/test_torch_bf16.py. Elementwise they cannot be held: a rounding
-# flip early in the forward moves everything after it by its gain through
-# the later layers (1.75 to 2.97 bf16 ulps of each output's max|ref| on a
-# 48-step model whose logits reach 350 to 580).
-BF16_HEAD_RATIO = 2.0
 # batches of each epoch whose device copy is held against the host batch
 PREFETCH_SAMPLE = (0, 7, 15)
 
@@ -2037,9 +2073,11 @@ def check_export(tag: str, ckpt: str, state, cfg, dtype: str, images_np,
                  out_dir: str) -> dict:
     """cli.export.main on a checkpoint with --ema: the .npz equals fold_bn
     (and the bf16 cast) of the state's EMA model bit for bit; load_predictor
-    on it launches both kernels, and its head outputs hold to the plain
-    versions' (f32: check_close, phase 4's fold→predict tolerance; bf16:
-    as far from the f32 witness as the plain path, BF16_HEAD_RATIO)."""
+    on it replays the graph written beside it, which launches both kernels
+    and whose detections agree with the parameter path's (`agree`); the
+    parameter path's head outputs hold to the plain versions' (f32:
+    check_close, phase 4's fold→predict tolerance; bf16: as far from the
+    f32 witness as the plain path, BF16_HEAD_RATIO)."""
     from yolo_nano_tpu_torch.cli import export as cli_export
     from yolo_nano_tpu_torch.convert import (flatten_tree, load_npz,
                                              model_from_state,
@@ -2063,46 +2101,47 @@ def check_export(tag: str, ckpt: str, state, cfg, dtype: str, images_np,
             got[k])
         if g.dtype != v.dtype or not torch.equal(g, v):
             raise AssertionError(f"{tag}: {k} differs from the state's fold")
-    fn = load_predictor(path)
+    fn = load_predictor(path)  # the graph written beside the .npz
+    params = load_predictor(path, prefer_params=True)
+    if not hasattr(fn, "graph"):
+        raise AssertionError(f"{tag}: cli.export wrote no serving graph")
     x = torch.from_numpy(images_np).cuda().to(fn.dtype)
     with torch.inference_mode():
         fn(images_np)                                 # warm-up
         reset_counts()
-        fn(images_np)
+        got = fn(images_np)
         counts = read_counts()
-        features = fn.model(x)
+        graph_agree = agree(f"{tag}: graph against the parameter path", got,
+                            params(images_np), fn)
+        features = params.model(x)
         with plain_kernels():
-            plain_features = fn.model(x)
+            plain_features = params.model(x)
     want_c = want_counts(1, bf16=dtype == "bfloat16")
     if counts != want_c:
         raise AssertionError(f"{tag}: launch counts {counts}, expected "
                              f"{want_c}")
-    witness = [None] * 3
     if dtype == "bfloat16":
         with torch.inference_mode(), plain_kernels():
-            witness = copy.deepcopy(fn.model).float()(x.float())
+            witness = copy.deepcopy(params.model).float()(x.float())
     errs = {}
-    for name, g, w, ref in zip(("conf", "cls", "txtytwth"), features,
-                               plain_features, witness):
+    for name, g, w in zip(("conf", "cls", "txtytwth"), features,
+                          plain_features):
         if dtype == "float32":  # phase 4's fold→predict tolerance
             errs[name] = check_close(f"{tag}: head output {name}", g, w,
                                      torch.float32)
             continue
         errs[name] = (g.float() - w.float()).abs().max().item()
-        rms = [(t.float() - ref).square().mean().sqrt().item()
-               for t in (g, w)]
         print(f"  {tag}: head output {name}: max_abs_err {errs[name]:.3g} "
               f"({bf16_ulps(g, w)[0]:.3g} bf16 ulps of max|ref| "
               f"{w.float().abs().max().item():.4g}), "
-              f"{float((g == w).float().mean()):.5f} bit-equal; RMS off the "
-              f"f32 witness {rms[0]:.4g} / {rms[1]:.4g} (kernel / plain), "
-              f"{rms[0] / rms[1]:.3f}x, tolerance {BF16_HEAD_RATIO}x")
-        if not rms[0] <= BF16_HEAD_RATIO * rms[1]:
-            raise AssertionError(f"{tag}: head output {name} is {rms[0]} off "
-                                 f"the witness, the plain path {rms[1]}")
+              f"{float((g == w).float().mean()):.5f} bit-equal")
+    if dtype == "bfloat16":
+        head_witness(tag, features, plain_features, witness)
     print(f"  {tag}: {len(want)} leaves equal fold_bn of the state's EMA "
-          f"model bit for bit; load_predictor launches {counts}")
-    return dict(counts=counts, head_max_abs_err=errs)
+          f"model bit for bit; load_predictor replays its graph, launches "
+          f"{counts}, detections bit-equal to the parameter path's "
+          f"{graph_agree['bit_equal']}")
+    return dict(counts=counts, head_max_abs_err=errs, graph=graph_agree)
 
 
 def phase_train_cli(voc_root: str, tmp: str, images_np, bare: dict) -> dict:
@@ -2654,6 +2693,107 @@ def phase_serving_tools(tmp, images_np):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the serialized serving graph
+# ---------------------------------------------------------------------------
+
+GRAPH_BATCHES = (1, 8, 32)
+GRAPH_ITERS = {1: 50, 8: 20, 32: 10}
+GRAPH_ROUNDS = 3
+
+
+def phase_graph(images_np, tmp, card: str):
+    """Each committed artifact's serving graph exported on the CPU
+    (`serving.export_graph`, as cli.export writes it) beside a copy of the
+    .npz, loaded through load_predictor on the card (the graph path, no
+    model code) and against the parameter path (`prefer_params`): 16 + 6
+    launches of the kernels of its dtype per forward of the graph, on
+    phase 3's scenes at batch 1, 8 and 32, its detections against the
+    parameter path's (`agree`: f32 slot for slot, bf16 matched) with the
+    bit-equal share of the slots; the two paths' predict ms (device tensor
+    in and out; the least mean of GRAPH_ROUNDS rounds, timed in turn) at
+    each batch, their img/s numpy in and out at batch 32,
+    and the parameter path's forward ms. → {artifact: numbers}."""
+    from yolo_nano_tpu_torch.convert import load_model, load_npz, save_npz
+    from yolo_nano_tpu_torch.serving import (export_graph, graph_path,
+                                             load_predictor)
+
+    t_phase = time.perf_counter()
+    out = {}
+    for npz in (NPZ, NPZ_05X):
+        key = os.path.basename(npz)[:-4]
+        path = os.path.join(tmp, os.path.basename(npz))
+        tree, meta = load_npz(npz)  # as cli.export writes one with a graph
+        save_npz(path, tree, dict(meta, graph=True))
+        model, cfg, meta = load_model(path)
+        t0 = time.perf_counter()
+        export_graph(model, cfg, meta["img_size"], meta["dtype"],
+                     graph_path(path))
+        export_s = time.perf_counter() - t0
+        del model
+        t0 = time.perf_counter()
+        graph = load_predictor(path)
+        load_s = time.perf_counter() - t0
+        params = load_predictor(path, prefer_params=True)
+        if not hasattr(graph, "graph") or graph.device.type != "cuda":
+            raise AssertionError(f"[9] {key}: load_predictor did not replay "
+                                 f"the graph on the card")
+        bf16 = graph.dtype == torch.bfloat16
+        r = dict(export_s=export_s, load_s=load_s, batches={})
+        for b in GRAPH_BATCHES:
+            x_np = images_np[:b]
+            graph(x_np)  # warm-up: cuDNN picks its algorithms per shape
+            with counted(f"[9] {key} graph, batch {b}", 1, bf16) as c:
+                got = graph(x_np)
+            want = params(x_np)
+            a = agree(f"[9] {key} graph, batch {b}", got, want, graph)
+            a["equal_slots"] = float(np.mean(
+                (got[3] == want[3]) & (got[2] == want[2])
+                & (got[1] == want[1]) & (got[0] == want[0]).all(-1)))
+            x = torch.from_numpy(x_np).cuda()
+            xm = x.to(params.dtype)
+            with torch.inference_mode():
+                fwd_ms = time_ms(lambda: params.model(xm), GRAPH_ITERS[b])
+            # the least of GRAPH_ROUNDS rounds, the two paths in turn: the
+            # host's time drifts from one window to the next
+            ms = {"graph": [], "params": []}
+            for _ in range(GRAPH_ROUNDS):
+                for name, fn in (("graph", graph), ("params", params)):
+                    ms[name].append(time_ms(lambda: fn(x), GRAPH_ITERS[b]))
+            r["batches"][b] = dict(
+                counts=c, agree=a, graph_predict_ms=min(ms["graph"]),
+                params_predict_ms=min(ms["params"]),
+                params_forward_ms=fwd_ms)
+        x_np = images_np[:max(GRAPH_BATCHES)]
+        for name, fn in (("graph", graph), ("params", params)):
+            fn(x_np)
+            t0 = time.perf_counter()
+            for _ in range(5):
+                fn(x_np)
+            r[f"{name}_img_per_s"] = 5 * len(x_np) / (
+                time.perf_counter() - t0)
+        out[key] = r
+        rows = r["batches"]
+        print(f"[9] {key} graph: exported in {export_s:.1f} s, loaded in "
+              f"{load_s:.1f} s; launches per forward "
+              f"{rows[max(GRAPH_BATCHES)]['counts']}; against the parameter "
+              "path: " + "; ".join(
+                  f"batch {b}: {v['agree']['detections']} detections, "
+                  f"{v['agree']['equal_slots']:.4f} of slots bit-equal"
+                  for b, v in rows.items()))
+        print(f"  {key}: predict ms (device tensors), graph / parameter "
+              "path: " + "; ".join(
+                  f"batch {b}: {v['graph_predict_ms']:.3f} / "
+                  f"{v['params_predict_ms']:.3f} (forward "
+                  f"{v['params_forward_ms']:.3f})" for b, v in rows.items())
+              + f"; img/s numpy in and out at batch {max(GRAPH_BATCHES)}: "
+              f"graph {r['graph_img_per_s']:.1f}, parameter path "
+              f"{r['params_img_per_s']:.1f}; {card}")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"[9] serialized graph: {out['seconds']:.1f} s")
+    return out
+
+
 def kernel_row(name, source, rows, per_fwd, launches, replaces):
     """One JSON row per kernel: its main-path calls of one forward summed
     (the two head pairs of a level share a shape, so one is timed twice)."""
@@ -2677,8 +2817,15 @@ def main():
     parser.add_argument("--sweep-dw-pw-tiles", action="store_true",
                         help="time fused_dw_pw at a grid of tiles at each "
                         "head level instead of the main path")
+    parser.add_argument("--graph-only", action="store_true",
+                        help="phase 9 alone, after phase 1")
     args = parser.parse_args()
     card = phase_device_and_build()
+    if args.graph_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            phase_graph(render_scenes(BATCH, SIZE), tmp, card)
+        print(card)
+        return
     images_np = render_scenes(BATCH, SIZE)
     model = _trained_model()
     if args.sweep_stage_tiles:
@@ -2731,6 +2878,7 @@ def main():
         cli_stats = phase_train_cli(voc_root, tmp, images_np, train_stats)
         serving = phase_serving_tools(
             tmp, render_scenes(max(RAGGED), SIZE, seed=8))
+        graph = phase_graph(images_np, tmp, card)
     print(json.dumps({"main_path": stats, "batch": BATCH, "size": SIZE,
                       "training": train_stats,
                       "fused_dw_pw_per_shape": dw_rows,
@@ -2741,7 +2889,7 @@ def main():
                       "make_predict_fn_bf16_1x": stats1x_bf16,
                       "make_predict_fn_bf16_wide": stats_wide,
                       "eval": eval_stats, "train_cli": cli_stats,
-                      "serving_tools": serving}))
+                      "serving_tools": serving, "graph": graph}))
     # the main path runs the heads in f32 with leaky/leaky
     main_dw = [r for r in dw_rows if r["dtype"] == "float32"
                and r["acts"] == "leaky/leaky"]
@@ -2799,6 +2947,11 @@ def main():
         row["launches_benchmark"] = next(
             r["counts"][name] for k, r in cli["benchmark"].items()
             if k.startswith(key + "_"))
+    for row in kernels:  # phase 9: the graph of its dtype's artifact
+        key = "bench_coco416" + ("_05x" if row["name"].endswith("_bf16")
+                                 else "")
+        row["launches_graph"] = sum(r["counts"][row["name"]] for r in
+                                    graph[key]["batches"].values())
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

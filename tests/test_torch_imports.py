@@ -75,3 +75,14 @@ def test_port_files_cover_the_serving_tools_slice():
                  "cli/demo.py", "cli/benchmark.py", "cli/kmeans_anchor.py",
                  "tools/autotune_batch.py", "serving.py", "ops/nms.py"):
         assert name in got, name
+
+
+def test_port_files_cover_the_export_graph_slice():
+    """The walk reaches the kernels' operator registrations, the traceable
+    NMS, the graph's export and replay, the FLOP count and chip_smoke.py."""
+    got = {os.path.relpath(p, ROOT) for p in _port_files()}
+    for name in ("ops/kernels/__init__.py", "ops/kernels/fused_stage.py",
+                 "ops/kernels/fused_conv.py", "ops/nms.py", "serving.py",
+                 "cli/export.py", "utils/flops.py", "config.py"):
+        assert os.path.join("yolo_nano_tpu_torch", name) in got, name
+    assert "chip_smoke.py" in got

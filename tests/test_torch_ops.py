@@ -235,10 +235,40 @@ def _candidates(rng, b, k, n_valid, ties=False):
     return boxes, np.ascontiguousarray(score), cls
 
 
-@pytest.mark.parametrize("diou,ties,max_det", [
-    (False, False, 16), (True, False, 16), (False, True, 64)])
-def test_nms_on_candidates_matches_jax(diou, ties, max_det):
-    rng = np.random.default_rng(6)
+def _host_fixpoint(boxes, valid, thresh, diou=False):
+    """The port's sweeps as they ran before the `while_loop`: a Python loop
+    ending on `torch.equal` of the keep sets."""
+    boxes = torch.from_numpy(boxes)
+    ovr = tnms._pairwise_iou(boxes)
+    if diou:
+        ovr = ovr - tnms._pairwise_diou_penalty(boxes)
+    k = boxes.shape[-2]
+    order = torch.arange(k)
+    sup = (ovr > thresh) & (order[:, None] < order[None, :])
+    valid = torch.from_numpy(valid)
+    keep = valid
+    for _ in range(k):
+        new = valid & ~(sup & keep[..., :, None]).any(-2)
+        if torch.equal(new, keep):
+            break
+        keep = new
+    return keep
+
+
+class _Nms(torch.nn.Module):
+    def __init__(self, diou):
+        super().__init__()
+        self.diou = diou
+
+    def forward(self, boxes, valid):
+        return tnms.nms_greedy(boxes, valid, 0.45, diou=self.diou)
+
+
+@pytest.mark.parametrize("diou,ties,max_det,seed", [
+    (False, False, 16, 6), (True, False, 16, 6), (False, True, 64, 6),
+    (False, False, 48, 9), (True, True, 48, 10)])
+def test_nms_on_candidates_matches_jax(diou, ties, max_det, seed):
+    rng = np.random.default_rng(seed)
     boxes, score, cls = _candidates(rng, 3, 48, 40, ties)
     want = jnms.nms_on_candidates(
         jnp.asarray(boxes), jnp.asarray(score), jnp.asarray(cls),
@@ -260,7 +290,35 @@ def test_nms_on_candidates_matches_jax(diou, ties, max_det):
         np.testing.assert_array_equal(
             keep[i].numpy(),
             _sequential_greedy(shifted[i], score[i] >= 0, 0.45, diou))
+    # the keep sets are the old loop's, eagerly and as the `while_loop`
+    # operator that an exported graph runs
+    np.testing.assert_array_equal(
+        keep.numpy(), _host_fixpoint(shifted, score >= 0, 0.45, diou).numpy())
+    traced = torch.export.export(_Nms(diou), (
+        torch.from_numpy(shifted), torch.from_numpy(score >= 0))).module()
+    assert any(str(n.target) == "while_loop" for n in traced.graph.nodes)
+    np.testing.assert_array_equal(
+        traced(torch.from_numpy(shifted), torch.from_numpy(score >= 0)),
+        keep.numpy())
     assert int(got[3].sum()) < 3 * 40 // 2  # suppression did real work
+
+
+@pytest.mark.parametrize("k", [2, 16])
+def test_nms_greedy_on_a_chain_settles_one_candidate_a_sweep(k):
+    """Each box overlaps its neighbours alone (IoU 0.67), so the keep set
+    settles one candidate a sweep: the most sweeps that K candidates can
+    take. The loop, which has no it < K cap, ends with the sequential
+    greedy's keep set, eagerly and as the traced `while_loop`."""
+    x = np.arange(k, dtype=np.float32) * 2
+    boxes = np.stack([x, np.zeros(k), x + 10, np.full(k, 10)], -1).astype(
+        np.float32)
+    valid = np.ones(k, bool)
+    want = _sequential_greedy(boxes, valid, 0.45)
+    assert want.tolist() == [i % 2 == 0 for i in range(k)]
+    args = (torch.from_numpy(boxes)[None], torch.from_numpy(valid)[None])
+    np.testing.assert_array_equal(tnms.nms_greedy(*args, 0.45)[0], want)
+    traced = torch.export.export(_Nms(False), args).module()
+    np.testing.assert_array_equal(traced(*args)[0], want)
 
 
 def test_batched_nms_scored_matches_jax():

@@ -3,12 +3,13 @@ FLOPs report, the class names and box drawing, the anchor k-means, and the
 CLIs a user runs on a trained model (cli.test, cli.demo, cli.benchmark,
 cli.eval --tta), on a synthetic VOC set.
 
-Tolerances: parameter counts equal; GFLOPs within 1% of XLA's cost
-analysis at 416 px (the counter counts every tap of a convolution, XLA
-the taps inside the image and the elementwise ops too); drawn images,
-class names and k-means equal.
+Tolerances: parameter counts equal; GFLOPs within 0.5% of XLA's cost
+analysis at 128 and 416 px (both count a convolution's taps inside the
+image and the elementwise ops); drawn images, class names and k-means
+equal.
 """
 
+import dataclasses
 import json
 import os
 
@@ -35,12 +36,14 @@ def one_thread():
     torch.set_num_threads(n)
 
 
-@pytest.mark.parametrize("backbone", ["0.5x", "1.0x"])
-def test_flops_and_params_match_jax(backbone):
-    """At 416 px: the same parameter count as JAX's, GFLOPs within 1% of
-    XLA's. XLA counts only a convolution's taps inside the image and the
-    port every tap, as thop does, so the two part at small sizes (at 128
-    px the port counts 4.7% more at 0.5x); at 416 the border is small."""
+@pytest.mark.parametrize("backbone,size", [("0.5x", 416), ("1.0x", 416),
+                                          ("0.5x", 128), ("1.0x", 128)])
+def test_flops_and_params_match_jax(backbone, size):
+    """The same parameter count as JAX's, GFLOPs within 0.5% of XLA's cost
+    analysis, at 416 px and at 128, where the image border is a large share
+    of a convolution's taps: the port counts only the taps inside the image
+    and the elementwise ops, as XLA does (0.09% to 0.15% under it measured:
+    XLA counts each head output's bias add in three fusions)."""
     import jax
 
     from yolo_nano_tpu.config import YoloNanoConfig as JaxConfig
@@ -56,28 +59,42 @@ def test_flops_and_params_match_jax(backbone):
     cfg = YoloNanoConfig(**kw)
     params, stats = init_yolo_nano_tree(torch.Generator().manual_seed(0), cfg)
     want = jax_flops(jax.tree.map(np.asarray, params), stats,
-                     JaxConfig(**kw), 416)
-    got = flops_and_params(params, stats, cfg, 416)
+                     JaxConfig(**kw), size)
+    got = flops_and_params(params, stats, cfg, size)
     assert got[2] == want[2]
-    assert abs(got[0] - want[0]) <= 0.01 * want[0], (got, want)
+    assert abs(got[0] - want[0]) <= 0.005 * want[0], (got, want)
     assert got[1] == got[0] / 2
 
 
 def test_flops_of_a_folded_bf16_artifact():
-    """The 0.5x bf16 artifact (folded, stats None): its leaves widened, the
-    count of its convolutions and products equals the unfolded tree's."""
+    """The 0.5x bf16 artifact (folded, stats None), its leaves widened: the
+    stage blocks and head pairs go through the kernels' operators, whose
+    plain versions are counted, within 0.5% of XLA's count of the same
+    folded tree; fewer FLOPs than the unfolded tree (no BN) and fewer
+    parameters."""
+    import jax
+
+    from yolo_nano_tpu.config import YoloNanoConfig as JaxConfig
+    from yolo_nano_tpu.utils.flops import flops_and_params as jax_flops
+    from yolo_nano_tpu.utils.fuse_bn import empty_stats_like
+
     from yolo_nano_tpu_torch.config import config_from_json
-    from yolo_nano_tpu_torch.convert import load_npz
+    from yolo_nano_tpu_torch.convert import load_npz, widen_tree
     from yolo_nano_tpu_torch.models.yolo_nano import init_yolo_nano_tree
     from yolo_nano_tpu_torch.utils.flops import flops_and_params
 
     tree, meta = load_npz(NPZ_05X)
     cfg = config_from_json(meta)
     got = flops_and_params(tree, None, cfg, 96)
+    wide = jax.tree.map(np.asarray, widen_tree(tree))
+    want = jax_flops(wide, empty_stats_like(wide), JaxConfig(
+        **{f.name: getattr(cfg, f.name)
+           for f in dataclasses.fields(cfg)}), 96)
+    assert abs(got[0] - want[0]) <= 0.005 * want[0], (got, want)
     unfolded = flops_and_params(
         *init_yolo_nano_tree(torch.Generator().manual_seed(0), cfg), cfg, 96)
-    assert got[0] == unfolded[0]
-    assert got[2] == 640_725 < unfolded[2]
+    assert got[0] < unfolded[0]
+    assert got[2] == want[2] == 640_725 < unfolded[2]
 
 
 @pytest.mark.parametrize("dataset", ["voc", "coco"])

@@ -125,7 +125,8 @@ def build_predict_fn(args, cfg):
         if ema:
             raise SystemExit("--ema needs a train checkpoint directory; "
                              f"{args.weight} is a folded artifact")
-        fn = load_predictor(args.weight, device=args.device, **overrides)
+        fn = load_predictor(args.weight, device=args.device,
+                            prefer_params=tta, **overrides)
         if not tta and fn.input_size != args.img_size:
             raise SystemExit(f"{args.weight} predicts at {fn.input_size} px; "
                              f"pass --img_size {fn.input_size}")

@@ -14,15 +14,22 @@
 the newest step is read), with its EMA weights under --ema. The artifact
 is the folded tree (`utils.fuse_bn.fold_bn`, then `cast_f32_to_bf16`
 under --dtype bfloat16, the default) written by `convert.save_npz`, with
-the config, `img_size`, `dtype`, `folded` and `dataset` in its meta, so
-that `load_predictor(path)` needs no other argument. The artifact is then
-loaded back through `load_predictor` and predicts one blank image on the
-device: CUDA unless `--device` names another; without a CUDA device and
-without `--device`, it raises before anything is read.
+the config, `img_size`, `dtype`, `folded`, `dataset` and `graph` (whether
+this export wrote the graph below) in its meta, so that
+`load_predictor(path)` needs no other argument.
 
-The JAX package also writes `predict.stablehlo`, the serialized serving
-graph; its counterpart in the port is ROADMAP Queue 1 item 16, not ported
-yet, so `--no_stablehlo` is accepted and changes nothing.
+By default the export also writes `<out stem>.pt2` beside the `.npz`: the
+whole serving graph (forward, scores, decode and NMS at the artifact's
+thresholds, a bf16 artifact's image cast, the weights as constants)
+traced by torch.export on the CPU with a symbolic batch dimension
+(`serving.export_graph`), the counterpart of the JAX package's
+`predict.stablehlo`. It replays on the CPU and on CUDA, where its
+operators launch the hand kernels, without the port's model code;
+`load_predictor` prefers it when the meta's `graph` is true. `--no_stablehlo` (the JAX CLI's flag) skips
+it. The artifact is then loaded back through `load_predictor` and
+predicts one blank image on the device: CUDA unless `--device` names
+another; without a CUDA device and without `--device`, it raises before
+anything is read.
 """
 
 from __future__ import annotations
@@ -49,9 +56,8 @@ def parse_args(argv=None):
     p.add_argument("--dtype", default="bfloat16",
                    choices=["bfloat16", "float32"])
     p.add_argument("--no_stablehlo", action="store_true", default=False,
-                   help="accepted for the JAX CLI's command lines; no "
-                        "effect: the port writes no serialized graph yet "
-                        "(ROADMAP Queue 1 item 16)")
+                   help="skip the serialized serving graph <out stem>.pt2 "
+                        "(the .npz and its config only)")
     p.add_argument("--device", default=None,
                    help="torch device to check the artifact on (default: "
                         "CUDA, which must be present); 'cpu' runs the plain "
@@ -68,7 +74,8 @@ def main(argv=None) -> str:
     from yolo_nano_tpu_torch.cli.eval import load_weights
     from yolo_nano_tpu_torch.convert import (build_yolo_nano, save_npz,
                                              tree_from_model)
-    from yolo_nano_tpu_torch.serving import load_predictor, resolve_device
+    from yolo_nano_tpu_torch.serving import (export_graph, graph_path,
+                                             load_predictor, resolve_device)
     from yolo_nano_tpu_torch.utils.fuse_bn import cast_f32_to_bf16, fold_bn
 
     dev = resolve_device(args.device)
@@ -91,7 +98,12 @@ def main(argv=None) -> str:
         "dtype": args.dtype,
         "folded": True,
         "dataset": args.dataset,
+        "graph": not args.no_stablehlo,
     })
+    if os.path.exists(graph_path(out)):  # never replay an older graph
+        os.remove(graph_path(out))
+    if not args.no_stablehlo:
+        export_graph(folded, cfg, args.img_size, args.dtype, graph_path(out))
     # the artifact loads alone and predicts
     load_predictor(out, device=dev)(
         np.zeros((1, args.img_size, args.img_size, 3), np.float32))

@@ -8,6 +8,7 @@ imports nothing of the JAX package.
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Tuple
 
 IGNORE_THRESH = 0.5
@@ -86,3 +87,16 @@ def config_from_json(meta: dict, **overrides) -> YoloNanoConfig:
     raw["strides"] = tuple(raw["strides"])
     raw.update(overrides)
     return YoloNanoConfig(**raw)
+
+
+# the key of an artifact's config.json content in its .npz
+CONFIG_KEY = "config.json"
+
+
+def read_meta(path: str) -> dict:
+    """A folded `.npz` artifact's config.json content (config, img_size,
+    dtype, folded, dataset, graph), without reading its weights."""
+    import numpy as np
+
+    with np.load(path, allow_pickle=False) as z:
+        return json.loads(str(z[CONFIG_KEY]))

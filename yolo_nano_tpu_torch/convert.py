@@ -31,14 +31,14 @@ import numpy as np
 import torch
 from torch import nn
 
-from yolo_nano_tpu_torch.config import YoloNanoConfig, config_from_json
+from yolo_nano_tpu_torch.config import (CONFIG_KEY, YoloNanoConfig,
+                                        config_from_json)
 from yolo_nano_tpu_torch.models.shufflenetv2 import (ShuffleBlock,
                                                      ShuffleNetV2,
                                                      ShuffleStage)
 from yolo_nano_tpu_torch.models.yolo_nano import Head, YoloNano
 from yolo_nano_tpu_torch.ops.nn import ConvUnit
 
-CONFIG_KEY = "config.json"
 BF16_SUFFIX = ".bf16"
 
 

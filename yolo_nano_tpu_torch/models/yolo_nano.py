@@ -32,8 +32,9 @@ from yolo_nano_tpu_torch.ops.decode import (Grids, decode_boxes,
                                             decode_boxes_gathered, make_grids)
 from yolo_nano_tpu_torch.ops.kernels.fused_conv import fused_dw_pw
 from yolo_nano_tpu_torch.ops.nms import nms_on_candidates, stable_topk
-from yolo_nano_tpu_torch.ops.nn import (ConvUnit, downsample2x_nearest,
-                                        init_bn, init_conv, upsample2x_nearest)
+from yolo_nano_tpu_torch.ops.nn import (  # noqa: F401 (precision_flags)
+    ConvUnit, downsample2x_nearest, init_bn, init_conv, precision_flags,
+    set_full_f32, upsample2x_nearest)
 
 
 class Head(nn.Module):
@@ -73,7 +74,9 @@ class Head(nn.Module):
         if self.folded:
             x = x.contiguous(memory_format=torch.channels_last)
             for dw_w, dw_b, pw_w, pw_b in self._pairs():
-                x = fused_dw_pw(x, dw_w, dw_b, pw_w.to(x.dtype), pw_b,
+                if pw_w.dtype != x.dtype:  # no op on the weights otherwise
+                    pw_w = pw_w.to(x.dtype)
+                x = fused_dw_pw(x, dw_w, dw_b, pw_w, pw_b,
                                 act_mid="leaky", act_out="leaky")
         else:
             x = self.pw1(self.dw1(self.pw0(self.dw0(x))))
@@ -161,21 +164,14 @@ def postprocess_scored(txtytwth_pred, score, cls, cfg: YoloNanoConfig,
                              max_det=cfg.max_detections, diou=cfg.diou_nms)
 
 
-def set_full_f32() -> None:
-    """Full-precision f32 on the card: cuDNN convolutions default to TF32
-    (about three decimal digits), which would make kernel-vs-plain and
-    port-vs-JAX comparisons unlike for like."""
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-
-
-def precision_flags() -> tuple:
-    """The process-wide settings that decide f32 precision on the card
-    (cuDNN TF32, matmul TF32 and precision), for a caller to check that a
-    call left them as they were."""
-    return (torch.backends.cudnn.allow_tf32,
-            torch.backends.cuda.matmul.allow_tf32,
-            torch.get_float32_matmul_precision())
+def detect(model: YoloNano, images: torch.Tensor, cfg: YoloNanoConfig,
+           input_size: int):
+    """What `predict` runs, without its grad mode and precision flags:
+    forward → scores → top-k → decode → NMS. `serving.export_graph` traces
+    it."""
+    conf_pred, cls_pred, txtytwth_pred = model(images)
+    score, cls = scores_from_features(conf_pred, cls_pred)
+    return postprocess_scored(txtytwth_pred, score, cls, cfg, input_size)
 
 
 @torch.inference_mode()
@@ -184,9 +180,7 @@ def predict(model: YoloNano, images: torch.Tensor, cfg: YoloNanoConfig,
     """Batched inference: images [B,S,S,3] → (boxes [B,D,4], scores [B,D],
     classes [B,D] int32, valid [B,D] bool), all on the images' device."""
     set_full_f32()  # f32 means f32: TF32 off for convolutions and matmuls
-    conf_pred, cls_pred, txtytwth_pred = model(images)
-    score, cls = scores_from_features(conf_pred, cls_pred)
-    return postprocess_scored(txtytwth_pred, score, cls, cfg, input_size)
+    return detect(model, images, cfg, input_size)
 
 
 # ---------------------------------------------------------------------------

@@ -20,6 +20,10 @@ keep the JAX kernel's layouts: dw_w [3, 3, C] f32, dw_b [C] f32,
 pw_w [C, Cout] in x's dtype, pw_b [Cout] f32. The kernel zero-pads the
 pointwise weights to multiples of 8 in shared memory, so any C and Cout up
 to 512 whose weights fit there are taken as they are.
+
+A call is one call of the PyTorch operator `torch.ops.yolo_nano_torch.dw_pw`:
+its CPU implementation is the plain version, its CUDA implementation the
+kernel, and its fake one gives the output's shape for tracing.
 """
 
 from __future__ import annotations
@@ -35,6 +39,7 @@ from yolo_nano_tpu_torch.ops.kernels.build import check, load
 from yolo_nano_tpu_torch.ops.nn import activate
 
 ACT_CODES = {None: 0, "relu": 1, "leaky": 2}
+ACT_NAMES = {v: k for k, v in ACT_CODES.items()}
 _SYMBOLS = {torch.float32: "fused_dw_pw_f32", torch.bfloat16: "fused_dw_pw_bf16"}
 COUT_MAX = 512  # the gemm's 16 warps cover at most 64 n8 tiles
 
@@ -133,26 +138,59 @@ def _launch(x, dw_w, dw_b, pw_w, pw_b, act_mid, act_out, tile=None):
     return out
 
 
-def fused_dw_pw(x, dw_w, dw_b, pw_w, pw_b, *,
-                act_mid: Optional[str] = "leaky",
-                act_out: Optional[str] = "leaky") -> torch.Tensor:
-    """x [B,C,H,W] channels_last → [B,Cout,H,W] channels_last, x's dtype.
+# The dw→pw pair as a PyTorch operator: the plain version on the CPU, the
+# kernel of x's dtype on CUDA, and a fake for tracing, so that a graph
+# exported by torch.export (serving.export_graph) holds the operator and
+# runs the kernel wherever it is replayed on the card. The activations are
+# `ACT_CODES`. Registered on the dispatch keys, as `fused_stage.py`'s.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the kernel
-    of its dtype (and counts the launch in `fused_dw_pw.launches`, a bf16
-    one also in `fused_dw_pw.launches_bf16`) or raises."""
-    _check(x, dw_w, dw_b, pw_w, pw_b)
-    if x.device.type == "cpu":
-        return fused_dw_pw_plain(x, dw_w, dw_b, pw_w, pw_b, act_mid=act_mid,
-                                 act_out=act_out)
-    if x.device.type != "cuda":
-        raise ValueError(f"fused_dw_pw runs on CPU or CUDA, not {x.device}")
+def dw_pw_plain(x: torch.Tensor, dw_w: torch.Tensor, dw_b: torch.Tensor,
+                pw_w: torch.Tensor, pw_b: torch.Tensor, act_mid: int,
+                act_out: int) -> torch.Tensor:
+    """The operator's plain version (its CPU implementation)."""
+    return fused_dw_pw_plain(x, dw_w, dw_b, pw_w, pw_b,
+                             act_mid=ACT_NAMES[act_mid],
+                             act_out=ACT_NAMES[act_out])
+
+
+def _dw_pw_cuda(x, dw_w, dw_b, pw_w, pw_b, act_mid, act_out):
     if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("x must be channels_last contiguous")
     for t in (dw_w, dw_b, pw_w, pw_b):
         if not t.is_contiguous():
             raise ValueError("weights must be contiguous")
-    return _launch(x, dw_w, dw_b, pw_w, pw_b, act_mid, act_out)
+    return _launch(x, dw_w, dw_b, pw_w, pw_b, ACT_NAMES[act_mid],
+                   ACT_NAMES[act_out])
+
+
+def _dw_pw_fake(x, dw_w, dw_b, pw_w, pw_b, act_mid, act_out):
+    b, _, h, w = x.shape
+    return torch.empty((b, pw_w.shape[1], h, w), dtype=x.dtype,
+                       device=x.device, memory_format=torch.channels_last)
+
+
+_LIB = torch.library.Library("yolo_nano_torch", "FRAGMENT")
+_LIB.define("dw_pw(Tensor x, Tensor dw_w, Tensor dw_b, Tensor pw_w, "
+            "Tensor pw_b, int act_mid, int act_out) -> Tensor")
+_LIB.impl("dw_pw", dw_pw_plain, "CPU")
+_LIB.impl("dw_pw", _dw_pw_cuda, "CUDA")
+torch.library.register_fake("yolo_nano_torch::dw_pw", _dw_pw_fake, lib=_LIB)
+
+
+def fused_dw_pw(x, dw_w, dw_b, pw_w, pw_b, *,
+                act_mid: Optional[str] = "leaky",
+                act_out: Optional[str] = "leaky") -> torch.Tensor:
+    """x [B,C,H,W] channels_last → [B,Cout,H,W] channels_last, x's dtype.
+
+    One call of the operator `yolo_nano_torch::dw_pw`: a CPU tensor takes
+    the plain version; a CUDA tensor launches the kernel of its dtype (and
+    counts the launch in `fused_dw_pw.launches`, a bf16 one also in
+    `fused_dw_pw.launches_bf16`) or raises."""
+    _check(x, dw_w, dw_b, pw_w, pw_b)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"fused_dw_pw runs on CPU or CUDA, not {x.device}")
+    return torch.ops.yolo_nano_torch.dw_pw.default(
+        x, dw_w, dw_b, pw_w, pw_b, ACT_CODES[act_mid], ACT_CODES[act_out])
 
 
 fused_dw_pw.launches = 0

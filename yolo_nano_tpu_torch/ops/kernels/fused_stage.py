@@ -26,13 +26,18 @@ the Pallas kernel's `_mm` rounds it; exact on bf16 weights), transposed and
 zero-padded to [round8(Cout)][round16(Cin)] (`*_bf16`, the m16n8k16
 products' N and K). The plain version takes the weights as they are. x is
 [B, C, H, W] in channels_last memory.
+
+Each block launch is one call of the PyTorch operator
+`torch.ops.yolo_nano_torch.shuffle_block` on the kernel layouts of x's
+dtype: its CPU implementation is the plain block, its CUDA implementation
+the kernel, and its fake one gives the output's shape for tracing.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
@@ -223,30 +228,39 @@ def block_tile(stride: int, cin: int, c2: int, batch: int, ho: int,
     return tile
 
 
-def _launch_block(lib, x, w, tile=None):
-    """One block launch of x's dtype; lib is `_lib(x.dtype)`."""
-    b, cin, h, wd = x.shape
-    c2 = w["pw1_w"].shape[1]
-    k1 = cin if w["stride"] == 2 else cin // 2
+def _padded(k: int, n: int, dtype) -> tuple:
+    """Shape of a [K, N] pointwise weight in the kernel layout of a dtype."""
+    if dtype == torch.bfloat16:
+        return (_round_up(n, 8), _round_up(k, 16))
+    return (_round_up(k, 8), _round_up(n, 8))
+
+
+def _check_widths(x, stride: int, c2: int, k1: int) -> None:
+    cin = x.shape[1]
     c2_max = C2_MAX[x.dtype]
     if c2 > c2_max or c2 % 2:
         raise ValueError(f"the stage kernel takes an even c2 up to {c2_max}, "
                          f"got {c2}")
-    if w["stride"] == 1 and cin != 2 * c2:
+    if stride == 1 and cin != 2 * c2:
         raise ValueError(f"stride-1 block needs Cin = 2·{c2}, got {cin}")
-    if w["pw1_w"].shape[0] != k1:
-        raise ValueError(f"pw1 takes {w['pw1_w'].shape[0]} channels, x "
-                         f"gives {k1}")
-    s = w["stride"]
-    ho, wo = (h - 1) // s + 1, (wd - 1) // s + 1
+    if k1 != (cin if stride == 2 else cin // 2):
+        raise ValueError(f"pw1 takes {k1} channels, x gives "
+                         f"{cin if stride == 2 else cin // 2}")
+
+
+def _launch_weights(lib, x, stride: int, c2: int, weights, tile=None):
+    """One block launch of x's dtype on the kernel-layout weights in the
+    order of `_WEIGHTS[x.dtype]` (None for a stride-1 block's branch1);
+    lib is `_lib(x.dtype)`."""
+    b, cin, h, wd = x.shape
+    ho, wo = (h - 1) // stride + 1, (wd - 1) // stride + 1
     if tile is None:
-        tile = block_tile(s, cin, c2, b, ho, wo, x.dtype)
+        tile = block_tile(stride, cin, c2, b, ho, wo, x.dtype)
     out = torch.empty((b, 2 * c2, ho, wo),
                       dtype=x.dtype, device=x.device,
                       memory_format=torch.channels_last)
     ptrs = []
-    for name in _WEIGHTS[x.dtype]:
-        t = w.get(name)
+    for name, t in zip(_WEIGHTS[x.dtype], weights):
         if t is None:  # the stride-1 block has no branch1
             ptrs.append(None)
             continue
@@ -258,8 +272,8 @@ def _launch_block(lib, x, w, tile=None):
         ptrs.append(t.data_ptr())
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = getattr(lib, _KERNELS[x.dtype][1])(x.data_ptr(), out.data_ptr(), b,
-                                             h, wd, cin, c2, s, tile, *ptrs,
-                                             stream)
+                                             h, wd, cin, c2, stride, tile,
+                                             *ptrs, stream)
     fused_stage.launches += 1
     if x.dtype == torch.bfloat16:
         fused_stage.launches_bf16 += 1
@@ -267,28 +281,122 @@ def _launch_block(lib, x, w, tile=None):
     return out
 
 
+def _launch_block(lib, x, w, tile=None):
+    """One block launch of x's dtype from `prepare_stage`'s dict; lib is
+    `_lib(x.dtype)`."""
+    k1, c2 = w["pw1_w"].shape
+    _check_widths(x, w["stride"], c2, k1)
+    return _launch_weights(lib, x, w["stride"], c2,
+                           [w.get(n) for n in _WEIGHTS[x.dtype]], tile)
+
+
+# One ShuffleV2 block as a PyTorch operator: the plain version on the CPU,
+# the kernel of x's dtype on CUDA, and a fake for tracing, so that a graph
+# exported by torch.export (serving.export_graph) holds the operator and
+# runs the kernel wherever it is replayed on the card. Its weights are the
+# kernel layouts of x's dtype (`_WEIGHTS`: `*_pad` for f32, `*_bf16` for
+# bf16), branch1's None for a stride-1 block; c2 is pw1_b's length. The
+# implementations are registered on the dispatch keys themselves
+# (`torch.library.Library.impl`): `torch.library.custom_op`'s wrappers
+# cost more host time a call, and a batch-1 forward makes 22 calls.
+_LIB = torch.library.Library("yolo_nano_torch", "FRAGMENT")
+
+
+def shuffle_block_plain(x: torch.Tensor, pw1_w: torch.Tensor,
+                        pw1_b: torch.Tensor, dw_w: torch.Tensor,
+                        dw_b: torch.Tensor, pw2_w: torch.Tensor,
+                        pw2_b: torch.Tensor, b1dw_w: Optional[torch.Tensor],
+                        b1dw_b: Optional[torch.Tensor],
+                        b1pw_w: Optional[torch.Tensor],
+                        b1pw_b: Optional[torch.Tensor]) -> torch.Tensor:
+    """The operator's plain version (its CPU implementation)."""
+    return block_plain(x, _plain_weights(
+        x, (pw1_w, pw1_b, dw_w, dw_b, pw2_w, pw2_b, b1dw_w, b1dw_b, b1pw_w,
+            b1pw_b)))
+
+
+def _plain_weights(x, weights) -> Dict[str, torch.Tensor]:
+    """The operator's kernel-layout weights → `block_plain`'s dict: each
+    pointwise weight [K, N] cut out of its padding (the bf16 layout
+    transposed back; its values are the plain version's rounded to bf16,
+    as `block_plain` rounds them)."""
+    w = {"stride": 1 if weights[6] is None else 2}
+    for name, t in zip(_WEIGHTS[x.dtype], weights):
+        if t is None:
+            continue
+        key = name.replace("_pad", "").replace("_bf16", "")
+        w[key] = t
+    c2, cin = w["pw1_b"].shape[0], x.shape[1]
+    ks = {"pw1_w": cin if w["stride"] == 2 else cin // 2, "pw2_w": c2,
+          "b1pw_w": cin}
+    for key, k in ks.items():
+        if key in w:
+            t = w[key]
+            w[key] = (t[:c2, :k].t() if x.dtype == torch.bfloat16
+                      else t[:k, :c2]).contiguous()
+    return w
+
+
+def _shuffle_block_cuda(x, pw1_w, pw1_b, dw_w, dw_b, pw2_w, pw2_b, b1dw_w,
+                        b1dw_b, b1pw_w, b1pw_b):
+    if not x.is_contiguous(memory_format=torch.channels_last):
+        raise ValueError("x must be channels_last contiguous")
+    stride = 1 if b1dw_w is None else 2
+    c2 = pw1_b.shape[0]
+    k1 = x.shape[1] if stride == 2 else x.shape[1] // 2
+    _check_widths(x, stride, c2, k1)
+    if tuple(pw1_w.shape) != _padded(k1, c2, x.dtype):
+        raise ValueError(f"pw1 of shape {tuple(pw1_w.shape)} does not take "
+                         f"{k1} channels to {c2}")
+    if stride == 2:
+        fused_stage.calls += 1  # a stage is one stride-2 block, then more
+    return _launch_weights(_lib(x.dtype), x, stride, c2,
+                           (pw1_w, pw1_b, dw_w, dw_b, pw2_w, pw2_b, b1dw_w,
+                            b1dw_b, b1pw_w, b1pw_b))
+
+
+def _shuffle_block_fake(x, pw1_w, pw1_b, dw_w, dw_b, pw2_w, pw2_b, b1dw_w,
+                        b1dw_b, b1pw_w, b1pw_b):
+    b, _, h, wd = x.shape
+    s = 1 if b1dw_w is None else 2
+    return torch.empty((b, 2 * pw1_b.shape[0], (h - 1) // s + 1,
+                        (wd - 1) // s + 1), dtype=x.dtype, device=x.device,
+                       memory_format=torch.channels_last)
+
+
+_LIB.define("shuffle_block(Tensor x, Tensor pw1_w, Tensor pw1_b, Tensor dw_w, "
+            "Tensor dw_b, Tensor pw2_w, Tensor pw2_b, Tensor? b1dw_w, "
+            "Tensor? b1dw_b, Tensor? b1pw_w, Tensor? b1pw_b) -> Tensor")
+_LIB.impl("shuffle_block", shuffle_block_plain, "CPU")
+_LIB.impl("shuffle_block", _shuffle_block_cuda, "CUDA")
+torch.library.register_fake("yolo_nano_torch::shuffle_block",
+                            _shuffle_block_fake, lib=_LIB)
+
+
+def block_args(w: Dict[str, torch.Tensor], dtype) -> tuple:
+    """`prepare_stage`'s dict of one block → the operator's weight
+    arguments for activations of `dtype`."""
+    return tuple(w.get(n) for n in _WEIGHTS[dtype])
+
+
 def fused_stage(x: torch.Tensor, blocks) -> torch.Tensor:
     """Run a whole stage: x [B,Cin,H,W] f32 or bf16 → [B,Cout,⌈H/2⌉,⌈W/2⌉]
     in x's dtype, channels_last.
 
-    `blocks` is `prepare_stage`'s list. A CPU tensor takes the plain
-    version; a CUDA tensor launches the kernel of its dtype once per block
-    (counted in `fused_stage.launches`, the bf16 ones also in
-    `fused_stage.launches_bf16`; `fused_stage.calls` counts stages) or
-    raises."""
+    `blocks` is `prepare_stage`'s list. Each block is one call of the
+    operator `yolo_nano_torch::shuffle_block`: a CPU tensor takes the plain
+    version; a CUDA tensor launches the kernel of its dtype (counted in
+    `fused_stage.launches`, the bf16 ones also in
+    `fused_stage.launches_bf16`, and each stage's stride-2 block in
+    `fused_stage.calls`) or raises."""
     if x.dim() != 4 or x.dtype not in _KERNELS:
         raise ValueError(f"x must be [B,C,H,W] f32 or bf16, got "
                          f"{tuple(x.shape)} {x.dtype}")
-    if x.device.type == "cpu":
-        return fused_stage_plain(x, blocks)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_stage runs on CPU or CUDA, not {x.device}")
-    if not x.is_contiguous(memory_format=torch.channels_last):
-        raise ValueError("x must be channels_last contiguous")
-    lib = _lib(x.dtype)
-    fused_stage.calls += 1
+    op = torch.ops.yolo_nano_torch.shuffle_block.default
     for w in blocks:
-        x = _launch_block(lib, x, w)
+        x = op(x, *block_args(w, x.dtype))
     return x
 
 

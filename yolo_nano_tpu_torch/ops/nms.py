@@ -14,6 +14,7 @@ Top-k ties: the JAX package's `lax.top_k` puts equal values in index order;
 from __future__ import annotations
 
 import torch
+from torch._higher_order_ops.while_loop import while_loop_op
 
 
 def stable_topk(x: torch.Tensor, k: int):
@@ -51,7 +52,19 @@ def _pairwise_diou_penalty(boxes):
 def nms_greedy(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
                diou: bool = False) -> torch.Tensor:
     """Greedy NMS over candidates ALREADY SORTED by descending score.
-    boxes [..., K, 4], valid [..., K] → keep [..., K]."""
+    boxes [..., K, 4], valid [..., K] → keep [..., K].
+
+    The sweeps are a while loop that carries (keep, changed) from (valid,
+    any(valid)) and stops when a sweep changes no keep, as the JAX
+    package's loop does (its carried prev and the test against it become
+    `changed`, computed in the body). JAX's second condition, it < K, never
+    stops the loop: the settled prefix grows by one every sweep, so at the
+    latest the (K+1)-th sweep finds no change; the port leaves the counter
+    out (three operator calls a sweep). Eagerly the loop runs in Python
+    and reads the condition on the host once per sweep (a few sweeps in
+    practice); when traced (torch.export in `serving.export_graph`, or
+    torch.compile) it is the `while_loop` operator, called directly: the
+    `while_loop` wrapper compiles it with dynamo on every new shape."""
     k = boxes.shape[-2]
     ovr = _pairwise_iou(boxes)
     if diou:
@@ -59,15 +72,20 @@ def nms_greedy(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
     order = torch.arange(k, device=boxes.device)
     # sup[j, i]: a kept j would suppress i (strictly lower-scored)
     sup = (ovr > iou_thresh) & (order[:, None] < order[None, :])
-    keep = valid
-    for _ in range(k):
+
+    def cond(keep, changed, valid, sup):
+        return changed
+
+    def body(keep, changed, valid, sup):
         new = valid & ~(sup & keep[..., :, None]).any(-2)
-        # host sync: the convergence test reads a device value on the host
-        # once per sweep (a few sweeps in practice)
-        if torch.equal(new, keep):
-            break
-        keep = new
-    return keep
+        return new, (new != keep).any()
+
+    carried = (valid, valid.any())
+    if torch.compiler.is_compiling():
+        return while_loop_op(cond, body, carried, (valid, sup))[0]
+    while cond(*carried, valid, sup):  # what the operator runs eagerly
+        carried = body(*carried, valid, sup)
+    return carried[0]
 
 
 def nms_on_candidates(top_boxes, top_score, top_cls, *,

@@ -107,6 +107,23 @@ def batch_norm_train(y: torch.Tensor, scale, bias, mean, var):
     return out.to(y.dtype), new_mean, new_var
 
 
+def set_full_f32() -> None:
+    """Full-precision f32 on the card: cuDNN convolutions default to TF32
+    (about three decimal digits), which would make kernel-vs-plain and
+    port-vs-JAX comparisons unlike for like."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+
+
+def precision_flags() -> tuple:
+    """The process-wide settings that decide f32 precision on the card
+    (cuDNN TF32, matmul TF32 and precision), for a caller to check that a
+    call left them as they were."""
+    return (torch.backends.cudnn.allow_tf32,
+            torch.backends.cuda.matmul.allow_tf32,
+            torch.get_float32_matmul_precision())
+
+
 class ConvUnit(nn.Module):
     """Conv (+bias) (+BN) + activation, padding (k-1)//2.
 

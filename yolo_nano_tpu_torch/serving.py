@@ -1,6 +1,20 @@
 """One-call loader: a folded `.npz` artifact → a batched predict function
-(the JAX package's `serving.load_predictor`, parameter path), and batch
-buckets for ragged serving traffic over the port's own batch table."""
+(the JAX package's `serving.load_predictor`), and batch buckets for ragged
+serving traffic over the port's own batch table.
+
+The serialized serving graph is the counterpart of the JAX package's
+`predict.stablehlo`: `export_graph` traces forward → scores → postprocess
+of a folded model with torch.export (f32 images [b, S, S, 3] with a
+symbolic batch b, the thresholds baked in, a bf16 model's cast inside) and
+saves it as `<artifact stem>.pt2`, beside the `.npz`. The stages and head
+pairs are calls of the kernels' operators (`ops.kernels`), and the
+kernel-layout weights are constants of the graph, computed once at export.
+`load_predictor` replays that graph when the artifact's meta says that it
+was written with it (`"graph": true`), no threshold is overridden and
+`prefer_params` is false: it imports the operators and no model code, and
+moves the graph to the device, where the operators launch the hand
+kernels.
+"""
 
 from __future__ import annotations
 
@@ -77,13 +91,114 @@ def predictor(model, cfg, input_size: int, dev: torch.device,
     return predict_fn
 
 
+def graph_path(path: str) -> str:
+    """The serialized serving graph beside an artifact: `<stem>.pt2`."""
+    return os.path.splitext(path)[0] + ".pt2"
+
+
+class ServingGraph(torch.nn.Module):
+    """What `export_graph` traces: f32 images [B,S,S,3] → the model's dtype
+    → `models.yolo_nano.detect` at `cfg`'s thresholds."""
+
+    def __init__(self, model, cfg, input_size: int, dtype: torch.dtype):
+        super().__init__()
+        self.model = model
+        self.cfg = cfg
+        self.input_size = input_size
+        self.dtype = dtype
+
+    def forward(self, images: torch.Tensor):
+        from yolo_nano_tpu_torch.models.yolo_nano import detect
+
+        return detect(self.model, images.to(self.dtype), self.cfg,
+                      self.input_size)
+
+
+def export_graph(model, cfg, img_size: int, dtype: str, path: str):
+    """Trace the serving graph of a folded model on the CPU and save it at
+    `path` (a `.pt2`); → the ExportedProgram.
+
+    One forward at 64 px first builds each stage's and head's kernel-layout
+    weights, so that the graph holds them as constants instead of the ops
+    that make them. The example batch is 2: torch.export specializes a
+    dimension of size 0 or 1."""
+    if {p.device.type for p in model.parameters()} != {"cpu"}:
+        raise ValueError("export_graph traces a model on the CPU")
+    graph = ServingGraph(model.eval(), cfg, img_size, DTYPES[dtype])
+    with torch.no_grad():
+        model(torch.zeros((1, 64, 64, 3), dtype=DTYPES[dtype]))
+        ep = torch.export.export(
+            graph, (torch.zeros((2, img_size, img_size, 3)),),
+            dynamic_shapes=({0: torch.export.Dim("b", min=1)},))
+    torch.export.save(ep, path)
+    return ep
+
+
+# the tensor-metadata check that torch.export puts before each `.to`
+ASSERT_METADATA = torch.ops.aten._assert_tensor_metadata.default
+
+
+def graph_predictor(path: str, cfg, input_size: int, dev: torch.device,
+                    dtype: str) -> Callable:
+    """predict_fn replaying the serving graph saved at `path` on `dev`,
+    with `predictor`'s contract. Only the kernels' operators are imported:
+    no model code. Each call first sets full f32 (cuDNN and matmul TF32
+    off), as `models.yolo_nano.predict` does, since the flags are process
+    state that the graph does not hold.
+
+    The graph runs as the program's own graph module, its weights and
+    constants passed in the order of its signature, not as `ep.module()`:
+    that module checks and flattens its inputs and fetches each of its
+    weights by a chain of attribute lookups on every call, where
+    `take_images` has already checked the images. The checks that export
+    puts before each dtype cast (`ASSERT_METADATA`, an operator call each)
+    are taken out of the graph at load, as torch's own pass that removes
+    runtime assertions does."""
+    import yolo_nano_tpu_torch.ops.kernels  # noqa: F401 (the operators)
+    from torch.export.graph_signature import InputKind
+    from torch.export.passes import move_to_device_pass
+
+    from yolo_nano_tpu_torch.ops.nn import set_full_f32
+
+    ep = move_to_device_pass(torch.export.load(path), str(dev))
+    for m in ep.graph_module.modules():
+        if isinstance(m, torch.fx.GraphModule):
+            for node in list(m.graph.nodes):
+                if node.target is ASSERT_METADATA:
+                    m.graph.erase_node(node)
+            m.recompile()  # the pass rewrote the graphs, not their code
+    specs = ep.graph_signature.input_specs
+    if [s.kind for s in specs].count(InputKind.USER_INPUT) != 1 or (
+            specs[-1].kind != InputKind.USER_INPUT):
+        raise ValueError(f"{path}: the graph must take the images alone")
+    stored = {**ep.state_dict, **ep.constants}
+    weights = [stored[s.target] for s in specs[:-1]]
+    module = ep.graph_module
+    graph_dev = next(iter(ep.state_dict.values())).device  # with its index
+
+    def predict_fn(images):
+        x, on_device = take_images(images, graph_dev, input_size)
+        set_full_f32()
+        with torch.inference_mode():
+            out = module(*weights, x)
+        return hand_back(tuple(out), on_device)
+
+    predict_fn.graph = ep
+    predict_fn.cfg = cfg
+    predict_fn.input_size = input_size
+    predict_fn.device = dev
+    predict_fn.dtype = DTYPES[dtype]
+    return predict_fn
+
+
 def load_predictor(path: str, device=None,
                    batch_buckets=None,
                    conf_thresh: Optional[float] = None,
                    nms_thresh: Optional[float] = None,
                    diou_nms: Optional[bool] = None,
                    pre_topk: Optional[int] = None,
-                   max_det: Optional[int] = None) -> Callable:
+                   max_det: Optional[int] = None,
+                   prefer_params: bool = False) -> Callable:
     """Load a folded artifact → predict_fn(images) → numpy (boxes [B,D,4],
     scores [B,D], classes [B,D] int32, valid [B,D] bool).
 
@@ -96,23 +211,41 @@ def load_predictor(path: str, device=None,
     batch_buckets (e.g. (1, 8, 32, 128), or "auto" for the ladder of the
     port's batch table through `default_buckets`): serve any batch size
     through a bounded set of batch shapes by zero-padding, each bucket run
-    once here (`bucket_batches` with warmup)."""
-    from yolo_nano_tpu_torch.convert import load_model
+    once here (`bucket_batches` with warmup).
+
+    When the artifact's meta says `"graph": true` (cli.export wrote the
+    serialized graph `<stem>.pt2` with it), that file is there, no
+    threshold is overridden and not `prefer_params`, the graph is replayed
+    (`graph_predictor`: no model code is imported); otherwise the model is
+    rebuilt from the `.npz` (the parameter path, whose predict_fn also
+    carries the `model`). The thresholds, pre_topk and max_det are baked
+    into the graph, so an override takes the parameter path."""
+    from yolo_nano_tpu_torch.config import config_from_json, read_meta
 
     dev = resolve_device(device)
     overrides = {k: v for k, v in (
         ("conf_thresh", conf_thresh), ("nms_thresh", nms_thresh),
         ("diou_nms", diou_nms), ("nms_pre_topk", pre_topk),
         ("max_detections", max_det)) if v is not None}
-    model, cfg, meta = load_model(path, **overrides)
+    meta = read_meta(path)
     dtype = meta["dtype"]
     if dtype not in DTYPES:
         raise ValueError(f"{path}: dtype {dtype!r}; float32 and bfloat16 "
                          "artifacts are supported")
-    found = {p.dtype for p in model.parameters()}
-    if found != {DTYPES[dtype]}:
-        raise ValueError(f"{path}: a {dtype} artifact holds {found} leaves")
-    fn = predictor(model.to(dev), cfg, meta["img_size"], dev, dtype)
+    cfg = config_from_json(meta, **overrides)
+    if (meta.get("graph") and os.path.exists(graph_path(path))
+            and not overrides and not prefer_params):
+        fn = graph_predictor(graph_path(path), cfg, meta["img_size"], dev,
+                             dtype)
+    else:
+        from yolo_nano_tpu_torch.convert import load_model
+
+        model, cfg, meta = load_model(path, **overrides)
+        found = {p.dtype for p in model.parameters()}
+        if found != {DTYPES[dtype]}:
+            raise ValueError(f"{path}: a {dtype} artifact holds {found} "
+                             "leaves")
+        fn = predictor(model.to(dev), cfg, meta["img_size"], dev, dtype)
     if batch_buckets == "auto":
         batch_buckets = default_buckets(meta["img_size"], cfg.backbone)
     if not batch_buckets:
