@@ -99,7 +99,23 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
      against the parameter path's (f32 slot for slot, bf16 matched) with
      the bit-equal share of slots, both paths' predict ms and img/s, and
      the parameter path's forward ms;
- 10. a JSON line of kernel numbers, the card line, and the result line.
+ 10. the in-graph augmentation (data/device_aug.py): apply_augment on the
+     card against the CPU on the same draws (batch 16 of phase 7's scenes
+     as uint8 canvases at 416 px, outputs at 320, 416 and 608, with and
+     without the mosaic, the crop disallowed on some rows and one row with
+     no valid box; images within AUG_IMAGE_ATOL on the 0..255 scale, boxes
+     within AUG_BOX_ATOL, labels equal), each card call under
+     set_sync_debug_mode("error"); the sampler's crops over 2,000 items on
+     the card held to the accept rule, with the identity share and mean
+     crop area beside the CPU's; one augmenting train step under
+     set_sync_debug_mode("error"); cli.train --device_augment --mosaic -ms
+     --ema --cache_images on phase 7's split (run D 1 epoch, run E D
+     resumed to 2, run F 2 uninterrupted): E's last-epoch rows and its
+     first augmented batch equal to F's, no kernel in a training step, the
+     eval hooks' bf16 launches; the augment's ms and launches per call at
+     416 and 608 px, the CLI's img/s and loader share beside phase 7's run
+     C, the pinned copy of a uint8 batch, peak memory;
+ 11. a JSON line of kernel numbers, the card line, and the result line.
 
 A bound is the least time the card could take for a kernel's work: the
 larger of its bytes (each input read once, each output written once) over
@@ -280,6 +296,20 @@ def time_ms(fn, iters: int = 20, warmup: int = 3, queued: bool = False
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, reps: int = 5) -> float:
+    """Least host ms to issue one call of fn with the card's queue empty
+    (synchronized before each call, not after it)."""
+    fn()
+    best = float("inf")
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        best = min(best, (time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return best
 
 
 def bound(nbytes: float, flops: float, dtype) -> tuple:
@@ -2794,6 +2824,347 @@ def phase_graph(images_np, tmp, card: str):
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 10: the in-graph augmentation
+# ---------------------------------------------------------------------------
+
+AUG_SIZES = (320, 416, 608)
+AUG_TIMED_SIZES = (416, 608)
+AUG_SAMPLER_ITEMS = 2000
+AUG_SEED = 10
+# the card against the CPU on the same draws: images on the 0..255 scale
+# before normalization (about 6 ulps of 255; the card has read bit-equal
+# to the CPU), boxes in normalized units, labels equal
+AUG_IMAGE_ATOL = 1e-4
+AUG_BOX_ATOL = 1e-5
+# the accept rule's aspect bounds, checked on the chosen rect's corners
+# (left + w − left rounds apart from w by an ulp)
+AUG_RATIO_SLACK = 1e-5
+AUG_EPOCHS = 1  # run D; run E resumes D to AUG_EPOCHS + 1; run F runs that
+
+
+def device_aug_batch(voc_root: str):
+    """Phase 7's train split at SIZE through a device-mode DetectionLoader:
+    its first batch of TRAIN_BATCH (uint8 canvases, boxes, labels, regions),
+    with the crop disallowed on every fifth row and no valid box on row 3."""
+    from yolo_nano_tpu_torch.data.loader import DetectionLoader
+    from yolo_nano_tpu_torch.data.voc import VOCDataset
+
+    ds = VOCDataset(voc_root, img_size=SIZE,
+                    image_sets=[("2007", "trainval")])
+    ds.device_augment = True
+    loader = DetectionLoader(ds, TRAIN_BATCH, max_boxes=MAX_BOXES,
+                             num_workers=4, seed=0)
+    it = iter(loader)
+    images, boxes, labels, regions = next(it)
+    it.close()
+    loader.close()
+    labels, regions = labels.copy(), regions.copy()
+    regions[::5, 4] = 0
+    labels[3] = -1
+    return images, boxes, labels, regions
+
+
+def augment_pixels(images: torch.Tensor) -> torch.Tensor:
+    """The augment's normalized RGB output back on the 0..255 BGR scale."""
+    from yolo_nano_tpu_torch.data.device_aug import _MEAN, _STD
+
+    mean = torch.tensor(_MEAN, dtype=torch.float32, device=images.device)
+    std = torch.tensor(_STD, dtype=torch.float32, device=images.device)
+    return (images.float().flip(-1) * std + mean) * 255.0
+
+
+def check_augment_on_card(batch) -> list:
+    """(a) apply_augment on the card against the CPU on the same draws, at
+    each of AUG_SIZES with and without the mosaic, each card call under
+    set_sync_debug_mode("error")."""
+    from yolo_nano_tpu_torch.data.device_aug import apply_augment, sample_draws
+
+    cpu_in = [torch.from_numpy(a) for a in batch]
+    card_in = [t.cuda() for t in cpu_in]
+    rows = []
+    for mosaic in (False, True):
+        draws = sample_draws(torch.Generator().manual_seed(AUG_SEED),
+                             TRAIN_BATCH, mosaic=mosaic)
+        card_draws = {k: v.cuda() for k, v in draws.items()}
+        for size in AUG_SIZES:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                got = apply_augment(*card_in, card_draws, size,
+                                    mosaic=mosaic)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            want = apply_augment(*cpu_in, draws, size, mosaic=mosaic)
+            img_err = (augment_pixels(got[0].cpu())
+                       - augment_pixels(want[0])).abs().max().item()
+            box_err = (got[1].cpu() - want[1]).abs().max().item()
+            row = dict(size=size, mosaic=mosaic, image_max_abs_err=img_err,
+                       box_max_abs_err=box_err,
+                       bit_equal=float((got[0].cpu() == want[0]).float()
+                                       .mean()),
+                       labels_equal=torch.equal(got[2].cpu(), want[2]),
+                       kept=int((want[2] >= 0).sum()))
+            print(f"  apply_augment {size} px, mosaic {mosaic}: image max "
+                  f"abs err {img_err:.3g} on 0..255 (tolerance "
+                  f"{AUG_IMAGE_ATOL}), {row['bit_equal']:.5f} bit-equal; "
+                  f"boxes {box_err:.3g} (tolerance {AUG_BOX_ATOL}); labels "
+                  f"equal {row['labels_equal']} ({row['kept']} kept)")
+            if not (img_err <= AUG_IMAGE_ATOL and box_err <= AUG_BOX_ATOL
+                    and row["labels_equal"]):
+                raise AssertionError(f"apply_augment at {size} px, mosaic "
+                                     f"{mosaic}: the card differs from the "
+                                     "CPU")
+            rows.append(row)
+    return rows
+
+
+def crop_stats(where: str, boxes, labels, region, check: bool) -> dict:
+    """(b) sample_draws and sample_crop on `where` over the rows given; with
+    check, every non-identity crop is held to the accept rule: h/w in
+    [0.5, 2], a valid box centre strictly inside, and the rect one of the
+    candidates of a round before the first mode-0 round, of a mode other
+    than 0. → identity share and mean crop area (of the region's)."""
+    from yolo_nano_tpu_torch.data.device_aug import sample_crop, sample_draws
+
+    boxes, labels, region = (t.to(where) for t in (boxes, labels, region))
+    n = boxes.shape[0]
+    gen = torch.Generator(where).manual_seed(AUG_SEED + 1)
+    d = sample_draws(gen, n)
+    rect, identity = sample_crop(d, boxes, labels, region, SIZE)
+    area = ((rect[:, 2] - rect[:, 0]) * (rect[:, 3] - rect[:, 1])
+            / ((region[:, 2] - region[:, 0]) * (region[:, 3] - region[:, 1])))
+    out = dict(items=n, identity_share=identity.float().mean().item(),
+               mean_area=area.mean().item())
+    if check:
+        crop = ~identity
+        w, h = rect[:, 2] - rect[:, 0], rect[:, 3] - rect[:, 1]
+        ratio = h / w
+        aspect_ok = ((ratio >= 0.5 - AUG_RATIO_SLACK)
+                     & (ratio <= 2.0 + AUG_RATIO_SLACK))
+        cx = (boxes[..., 0] + boxes[..., 2]) * 0.5
+        cy = (boxes[..., 1] + boxes[..., 3]) * 0.5
+        r = rect[:, None]
+        inside = ((r[..., 0] < cx) & (r[..., 1] < cy) & (r[..., 2] > cx)
+                  & (r[..., 3] > cy) & (labels >= 0)).any(-1)
+        rw = (region[:, 2] - region[:, 0])[:, None, None]
+        rh = (region[:, 3] - region[:, 1])[:, None, None]
+        cw = (0.3 + 0.7 * d["u_w"]) * rw
+        ch = (0.3 + 0.7 * d["u_h"]) * rh
+        left = region[:, 0, None, None] + d["u_l"] * (rw - cw)
+        top = region[:, 1, None, None] + d["u_t"] * (rh - ch)
+        cand = torch.stack([left, top, left + cw, top + ch], -1)
+        hit = (cand == rect[:, None, None]).all(-1)            # [n,R,T]
+        rounds = torch.arange(d["mode"].shape[1], device=where)
+        exits = torch.where(d["mode"] == 0, rounds, d["mode"].shape[1])
+        before_exit = rounds[None] < exits.amin(-1, keepdim=True)
+        mode_ok = (hit & (before_exit & (d["mode"] != 0))[..., None]).any(
+            (-1, -2))
+        bad = crop & ~(aspect_ok & inside & mode_ok)
+        out.update(crops=int(crop.sum()), violations=int(bad.sum()))
+        if out["violations"]:
+            raise AssertionError(f"{out['violations']} of {out['crops']} "
+                                 "crops on the card break the accept rule")
+    return out
+
+
+@contextlib.contextmanager
+def watch_augment(keep_call: int):
+    """device_aug.make_augment_fn wrapped: the outputs of the augment's
+    call number `keep_call` (counted over all its sizes) are kept. → that
+    dict, filled as the CLI runs."""
+    from yolo_nano_tpu_torch.data import device_aug
+
+    make = device_aug.make_augment_fn
+    w = dict(calls=0, kept=None)
+
+    def make_watched(*a, **kw):
+        augment = make(*a, **kw)
+
+        def watched(*args):
+            out = augment(*args)
+            if w["calls"] == keep_call:
+                w["kept"] = tuple(t.clone() for t in out)
+            w["calls"] += 1
+            return out
+        return watched
+
+    device_aug.make_augment_fn = make_watched
+    try:
+        yield w
+    finally:
+        device_aug.make_augment_fn = make
+
+
+def phase_device_aug(voc_root: str, tmp: str, state, cfg, cli_stats: dict
+                     ) -> dict:
+    """The in-graph augmentation on the card: (a) apply_augment against the
+    CPU on the same draws; (b) the sampler's crops against the accept rule
+    and its identity share and mean area beside the CPU's; one augmenting
+    train step under set_sync_debug_mode("error"); (c) cli.train
+    --device_augment --mosaic -ms --ema --cache_images on phase 7's train
+    split: run D (AUG_EPOCHS), run E (D resumed one epoch further), run F
+    (uninterrupted), E's last-epoch rows and first augmented batch equal to
+    F's, and run G, F's flags without --device_augment (the host chain);
+    (d) augment ms and launches per call, the host ms to issue an augment
+    and an augmenting step, the CLI's img/s and loader share in F beside
+    G, the uint8 batch's pinned copy, peak memory."""
+    from yolo_nano_tpu_torch.data.device_aug import make_augment_fn
+    from yolo_nano_tpu_torch.data.loader import pin_batch
+    from yolo_nano_tpu_torch.train import make_optimizer, make_train_step
+
+    t_phase = time.perf_counter()
+    batch = device_aug_batch(voc_root)
+    print(f"[10] in-graph augmentation: batch {TRAIN_BATCH} of phase 7's "
+          f"scenes as uint8 canvases at {SIZE} px (crop disallowed on rows "
+          f"0, 5, 10, 15; no valid box on row 3)")
+    out = dict(card_vs_cpu=check_augment_on_card(batch))
+
+    reps = -(-AUG_SAMPLER_ITEMS // TRAIN_BATCH)
+    rows = [torch.from_numpy(a) for a in batch[1:]]
+    boxes, labels = rows[0].repeat(reps, 1, 1), rows[1].repeat(reps, 1)
+    region = rows[2][:, :4].repeat(reps, 1)
+    card = crop_stats("cuda", boxes, labels, region, check=True)
+    cpu = crop_stats("cpu", boxes, labels, region, check=False)
+    print(f"  sampler over {card['items']} items on the card: "
+          f"{card['crops']} crops, all within the accept rule; identity "
+          f"share {card['identity_share']:.4f} (CPU "
+          f"{cpu['identity_share']:.4f}), mean crop area "
+          f"{card['mean_area']:.4f} of the region "
+          f"(CPU {cpu['mean_area']:.4f})")
+    out["sampler"] = dict(card=card, cpu=cpu)
+
+    # one augmenting train step (phase 4's state), no host sync
+    step = make_train_step(cfg, make_optimizer(lambda count: TRAIN_LR), SIZE,
+                           augment=make_augment_fn(SIZE, mosaic=True))
+    card_in = [torch.from_numpy(a).cuda() for a in batch]
+    gen = torch.Generator("cuda").manual_seed(AUG_SEED)
+    step(state, *card_in, gen)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        new_state, metrics = step(state, *card_in, gen)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if int(new_state.step) != int(state.step) + 1 or not torch.isfinite(
+            metrics["loss/total"]):
+        raise AssertionError("the augmenting step did not take its step")
+    print(f"  an augmenting train step (mosaic on) under set_sync_debug_mode"
+          f"('error'): loss {float(metrics['loss/total']):.4f}")
+    augment = make_augment_fn(SIZE, mosaic=True)
+    out["host_ms"] = dict(
+        augment=host_ms(lambda: augment(*card_in, gen)),
+        step=host_ms(lambda: step(state, *card_in, gen)))
+    out["host_ms"]["augment_share"] = (out["host_ms"]["augment"]
+                                       / out["host_ms"]["step"])
+    print(f"  host time to issue one call at {SIZE} px, mosaic on (least of "
+          f"5, the queue empty): augment {out['host_ms']['augment']:.3f} ms, "
+          f"the augmenting step {out['host_ms']['step']:.3f} ms; the augment "
+          f"is {out['host_ms']['augment_share']:.3f} of the step's host time")
+
+    # (d) the augment alone: ms per batch and launches per call
+    timing = {}
+    for size in AUG_TIMED_SIZES:
+        for mosaic in (False, True):
+            augment = make_augment_fn(size, mosaic=mosaic)
+            fn = lambda: augment(*card_in, gen)  # noqa: E731
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            ms = time_ms(fn, iters=10)
+            peak = torch.cuda.max_memory_allocated() - base
+            kernels = forward_kernels(fn, top=3, iters=2)
+            key = f"{size}_{'mosaic' if mosaic else 'crop'}"
+            timing[key] = dict(ms=ms, peak_bytes=peak,
+                               launches=None if kernels is None
+                               else kernels["kernels_per_call"])
+            print(f"  augment {size} px, mosaic {mosaic}: {ms:.3f} ms a "
+                  f"batch of {TRAIN_BATCH} on the device, "
+                  f"{timing[key]['launches']} kernel launches a call, peak "
+                  f"{peak / 2**20:.1f} MiB above its inputs")
+    out["augment"] = timing
+
+    # (c) training through the CLI
+    steps = TRAIN_SCENES // TRAIN_BATCH
+    last = AUG_EPOCHS + 1
+    common = ["-d", "voc", "--root", voc_root, "--voc_sets", "2007",
+              "--img_size", str(SIZE), "--batch_size", str(TRAIN_BATCH),
+              "--num_workers", "4", "-ms", "--ema", "--device_augment",
+              "--mosaic", "--cache_images", "--eval_epoch", str(last)]
+    print(f"  cli.train {' '.join(common[4:])}: run D {AUG_EPOCHS} epoch(s), "
+          f"run E D resumed to {last}, run F {last} uninterrupted "
+          f"({steps} steps an epoch); run G as F without --device_augment "
+          f"(the host chain with the same flags)")
+    dir_d, dir_f = os.path.join(tmp, "run_d"), os.path.join(tmp, "run_f")
+    runs, kept = {}, {}
+    for tag, argv, keep in (
+            ("D", ["--save_folder", dir_d, "--max_epoch", str(AUG_EPOCHS)],
+             None),
+            ("E", ["--save_folder", dir_d, "--max_epoch", str(last),
+                   "--resume", "auto"], 0),
+            ("F", ["--save_folder", dir_f, "--max_epoch", str(last)],
+             AUG_EPOCHS * steps)):
+        with watch_augment(-1 if keep is None else keep) as w:
+            runs[tag] = run_cli_train(f"run {tag}", common + argv)
+        kept[tag] = w["kept"]
+    printed = "".join(runs["E"]["watch"]["tee"].text)
+    if f"resumed @ step {AUG_EPOCHS * steps} " not in printed:
+        raise AssertionError(f"run E did not resume at step "
+                             f"{AUG_EPOCHS * steps}")
+    rows_e, rows_f = log_rows(dir_d, AUG_EPOCHS), log_rows(dir_f, AUG_EPOCHS)
+    if not rows_f or rows_e != rows_f:
+        raise AssertionError(f"run E's last-epoch rows {rows_e} differ from "
+                             f"run F's {rows_f}")
+    if kept["E"] is None or kept["F"] is None or not all(
+            torch.equal(a, b) for a, b in zip(kept["E"], kept["F"])):
+        raise AssertionError("the first augmented batch of the last epoch "
+                             "differs between runs E and F")
+    runs["G"] = run_cli_train("run G (host chain)", [
+        a for a in common if a != "--device_augment"] + [
+        "--save_folder", os.path.join(tmp, "run_g"), "--max_epoch",
+        str(last)])
+    for tag in ("E", "F", "G"):
+        if not runs[tag]["watch"]["hooks"]:
+            raise AssertionError(f"run {tag} ran no eval hook")
+    print(f"  run E resumed @ step {AUG_EPOCHS * steps}; its last-epoch rows "
+          f"(epoch, iter, size, step) equal run F's: {rows_f}; the first "
+          f"augmented batch of that epoch ({tuple(kept['F'][0].shape)}, "
+          f"{kept['F'][0].dtype}) bit-equal in E and F")
+
+    host, _ = runs["F"]["watch"]["pairs"][0]
+    pinned = pin_batch(host)
+    copy_ms = time_ms(lambda: [t.to("cuda", non_blocking=True)
+                               for t in pinned], iters=10)
+    out["cli"] = {tag: dict(images=r["images"], loop_s=r["loop_s"],
+                            img_per_s=r["images"] / r["loop_s"],
+                            loader_wait_s=r["loader_wait_s"],
+                            loader_share=r["loader_wait_s"] / r["loop_s"],
+                            eval_hook_s=r["eval_s"],
+                            eval_hook_counts=[h["counts"] for h in
+                                              r["watch"]["hooks"]],
+                            eval_hook_aps=[h["aps"] for h in
+                                           r["watch"]["hooks"]],
+                            peak_bytes=r["peak_bytes"], cli_s=r["cli_s"])
+                  for tag, r in runs.items()}
+    out.update(resumed_rows=rows_f, h2d_pinned_ms=copy_ms,
+               h2d_bytes=nbytes(*pinned))
+    f, g = out["cli"]["F"], out["cli"]["G"]
+    print(f"  CLI training with --device_augment {f['img_per_s']:.1f} img/s "
+          f"(run F), waiting for batches {f['loader_share']:.3f} of the "
+          f"loops; the host chain with the same flags {g['img_per_s']:.1f} "
+          f"img/s and {g['loader_share']:.3f} (run G); host→device copy of "
+          f"a uint8 "
+          f"batch ({nbytes(*pinned) / 2**20:.2f} MiB) from pinned memory "
+          f"{copy_ms:.3f} ms beside phase 7's f32 "
+          f"{cli_stats['h2d_bytes'] / 2**20:.2f} MiB in "
+          f"{cli_stats['h2d_pinned_ms']:.3f} ms; peak memory "
+          f"{f['peak_bytes'] / 2**30:.2f} GiB (run F), "
+          f"{g['peak_bytes'] / 2**30:.2f} GiB (run G)")
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 10: {out['seconds']:.1f} s")
+    return out
+
+
 def kernel_row(name, source, rows, per_fwd, launches, replaces):
     """One JSON row per kernel: its main-path calls of one forward summed
     (the two head pairs of a level share a shape, so one is timed twice)."""
@@ -2879,6 +3250,9 @@ def main():
         serving = phase_serving_tools(
             tmp, render_scenes(max(RAGGED), SIZE, seed=8))
         graph = phase_graph(images_np, tmp, card)
+        device_aug = phase_device_aug(
+            voc_root, tmp, train_state, config_from_json(load_npz(NPZ)[1]),
+            cli_stats)
     print(json.dumps({"main_path": stats, "batch": BATCH, "size": SIZE,
                       "training": train_stats,
                       "fused_dw_pw_per_shape": dw_rows,
@@ -2889,7 +3263,8 @@ def main():
                       "make_predict_fn_bf16_1x": stats1x_bf16,
                       "make_predict_fn_bf16_wide": stats_wide,
                       "eval": eval_stats, "train_cli": cli_stats,
-                      "serving_tools": serving, "graph": graph}))
+                      "serving_tools": serving, "graph": graph,
+                      "device_aug": device_aug}))
     # the main path runs the heads in f32 with leaky/leaky
     main_dw = [r for r in dw_rows if r["dtype"] == "float32"
                and r["acts"] == "leaky/leaky"]
@@ -2952,6 +3327,10 @@ def main():
                                  else "")
         row["launches_graph"] = sum(r["counts"][row["name"]] for r in
                                     graph[key]["batches"].values())
+    for row in kernels[2:]:  # phase 10: its CLI runs' eval hooks
+        row["launches_device_aug_eval_hooks"] = sum(
+            h[row["name"]] for r in device_aug["cli"].values()
+            for h in r["eval_hook_counts"])
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -220,8 +220,11 @@ def test_eval_loader_matches_jax(kind, synthetic_voc, synthetic_coco):
                                          ("coco", True)])
 def test_pull_item_matches_jax(kind, mosaic, synthetic_voc, synthetic_coco):
     """The train path of the readers (transforms, mosaic, base): pull_item
-    with augmentation, from the same seed, bit-equal to JAX's; and the
-    JAX package's device_augment switch raises in the port."""
+    with augmentation, from the same seed, bit-equal to JAX's; and in device
+    mode (device_augment: the uint8 canvas, its target and its region, the
+    in-graph augmentation's input) bit-equal to JAX's _pull_item_device,
+    without and with the canvas cache (read twice: the miss and the hit),
+    which evicts each decoded image once its canvas is memoized."""
     root = synthetic_voc[0] if kind == "voc" else synthetic_coco
     jds, tds = _datasets(kind, root, mosaic=mosaic, augment=True)
     for i in range(len(tds)):
@@ -231,9 +234,21 @@ def test_pull_item_matches_jax(kind, mosaic, synthetic_voc, synthetic_coco):
         for g, w in zip(got, want):
             np.testing.assert_array_equal(g, w)
         np.testing.assert_array_equal(tds.image_hw(i), jds.image_hw(i))
-    tds.device_augment = True
-    with pytest.raises(NotImplementedError, match="item 14"):
-        tds.pull_item(0, np.random.default_rng(0))
+    jds.device_augment = tds.device_augment = True
+    for cache in (False, True):
+        if cache:
+            jds.enable_image_cache()
+            tds.enable_image_cache()
+        for i in range(len(tds)):
+            for _ in range(1 + cache):
+                want = jds.pull_item(i, np.random.default_rng(i))
+                got = tds.pull_item(i, np.random.default_rng(i))
+                assert len(got) == len(want) == 3
+                assert got[0].dtype == want[0].dtype == np.uint8
+                for g, w in zip(got, want):
+                    assert g.dtype == w.dtype
+                    np.testing.assert_array_equal(g, w)
+    assert tds._img_cache == {} and len(tds._canvas_cache) == len(tds)
 
 
 def test_eval_loader_refuses_process_shard(synthetic_voc):

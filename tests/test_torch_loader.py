@@ -106,6 +106,33 @@ def test_process_mode_matches_thread_mode(voc_root):
         proc.close()
 
 
+@pytest.mark.parametrize("worker_mode", ["thread", "process"])
+def test_device_mode_loader_matches_jax(voc_root, worker_mode):
+    """A dataset with device_augment: batches of (uint8 canvases, boxes,
+    labels, regions [B,5]) bit for bit JAX's DetectionLoader's, in both
+    worker modes, with mosaic set (composed in the step, so the host ships
+    plain canvases)."""
+    from yolo_nano_tpu.data.loader import DetectionLoader as JaxLoader
+    from yolo_nano_tpu_torch.data.loader import DetectionLoader
+
+    jds, ds = _datasets(voc_root, mosaic=True)
+    jds.device_augment = ds.device_augment = True
+    kw = dict(batch_size=2, max_boxes=8, num_workers=2, seed=9)
+    want = _epochs(JaxLoader(jds, **kw), 1)[0]
+    loader = DetectionLoader(ds, worker_mode=worker_mode, **kw)
+    try:
+        got = _epochs(loader, 1)[0]
+    finally:
+        loader.close()
+    assert len(got) == len(want) == 4
+    for g, w in zip(got, want):
+        assert len(g) == len(w) == 4
+        assert g[0].dtype == np.uint8 and g[3].shape == (2, 5)
+        for a, b in zip(g, w):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            np.testing.assert_array_equal(a, b)
+
+
 def test_loader_refusals_and_the_cache_warning(voc_root):
     from yolo_nano_tpu_torch.data.loader import DetectionLoader
 

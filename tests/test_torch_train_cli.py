@@ -18,7 +18,9 @@ VOC set of one class.
       flags as they were; its checkpoint scores the same AP in cli.eval;
   (e) --pretrained: the port's converter equals the JAX tool's on one
       seeded torchvision-named state dict, and the CLI starts from it;
-  (f) the flags that raise, --bf16's cast (bit for bit as ml_dtypes) and
+  (f) the flags that raise, --device_augment --mosaic (a run resumed
+      after 1 epoch logs and ends as an uninterrupted one), --bf16's cast
+      (bit for bit as ml_dtypes) and
       --tfboard's scalars (through a stand-in writer: importing
       torch.utils.tensorboard takes 15 s here);
   (g) cli.export's .npz equals JAX fold_bn (and cast_f32_to_bf16) of the
@@ -382,8 +384,27 @@ def test_flags_that_raise_and_bf16(voc, tmp_path, monkeypatch):
     from yolo_nano_tpu_torch.data.loader import DetectionLoader
     from yolo_nano_tpu_torch.data.voc import VOCDataset
 
-    with pytest.raises(NotImplementedError, match="item 14"):
-        _train(_args(voc, tmp_path, "--device_augment"))
+    # --device_augment --mosaic: 2 steps an epoch, the augmentation in the
+    # step; 1 epoch resumed to 2 logs what 2 uninterrupted epochs log and
+    # ends on the same state bit for bit
+    aug = ("--device_augment", "--mosaic", "--eval_epoch", "99")
+    whole = _train(_args(voc, tmp_path / "aug_whole", *aug, "--max_epoch",
+                         "2"))
+    _train(_args(voc, tmp_path / "aug_resumed", *aug, "--max_epoch", "1"))
+    resumed = _train(_args(voc, tmp_path / "aug_resumed", *aug,
+                           "--max_epoch", "2", "--resume", "auto"))
+    rows = [r for r in _log(tmp_path / "aug_whole") if r["epoch"] == 1]
+    assert rows and rows == [r for r in _log(tmp_path / "aug_resumed")
+                             if r["epoch"] == 1]
+    assert rows[0]["step"] == 3 and np.isfinite(rows[0]["loss/total"])
+    assert whole["images"] == 8 and resumed["images"] == 4
+    from yolo_nano_tpu_torch.convert import flatten_tree, train_state_to_jax
+
+    for field, tree in train_state_to_jax(whole["state"]).items():
+        if isinstance(tree, dict):
+            got = flatten_tree(train_state_to_jax(resumed["state"])[field])
+            for k, v in flatten_tree(tree).items():
+                np.testing.assert_array_equal(got[k], v, err_msg=k)
     with pytest.raises(NotImplementedError, match="item 17"):
         _train(_args(voc, tmp_path, "--coordinator", "localhost:1234"))
     with pytest.raises(SystemExit):

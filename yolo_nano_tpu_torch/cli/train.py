@@ -18,15 +18,21 @@ train.py, as in the JAX package's:
 
 Batches go to the card through `data.loader.device_prefetch` (pinned
 memory, a copy stream, two batches ahead); --bf16 casts the images to bf16
-there. The training precision is full f32 (TF32 off), set once at the start;
+there. With --device_augment the host only decodes and letterboxes each
+image into a uint8 base canvas, and the batches go to the card as uint8;
+the SSD augmentation chain (and with --mosaic the 4-tile mosaic) runs in
+the train step (`data/device_aug.py`, in bf16 under --bf16), drawn from a
+generator on the device seeded per global iteration
+(`device_aug.augment_seed`), so a resumed run draws what an uninterrupted
+one would. The training precision is full f32 (TF32 off), set once at the start;
 the eval hook (`make_predict_fn` at its defaults: BN folded, bf16, so on
 the card both bf16 kernels) must leave it as it found it, and the CLI
 raises if it does not.
 
 At the start it prints the FLOPs and parameter report of the model at
 --img_size (`utils.flops.flops_and_params`, counted on the CPU). Not
-ported: --device_augment (the in-graph augmentation, ROADMAP Queue 1 item
-14) and --coordinator (multi-process training, item 17) raise.
+ported: --coordinator (multi-process training, ROADMAP Queue 1 item 17)
+raises.
 --pretrained reads a backbone `.npz` written by
 `yolo_nano_tpu_torch.tools.convert_shufflenetv2`.
 """
@@ -92,8 +98,9 @@ def parse_args(argv=None):
                    help="bfloat16 activations (params/BN stats/losses stay "
                         "f32); the images are cast on the device")
     p.add_argument("--device_augment", action="store_true", default=False,
-                   help="the in-graph augmentation (ROADMAP Queue 1 item "
-                        "14): not ported yet, raises")
+                   help="in-graph augmentation: host workers only decode "
+                        "+ letterbox to uint8; the SSD chain (and --mosaic) "
+                        "runs on the device inside the train step")
     p.add_argument("--tfboard", action="store_true", default=False,
                    help="also log losses to TensorBoard (reference "
                         "train.py:150-157 capability)")
@@ -165,15 +172,13 @@ def main(argv=None):
         raise NotImplementedError(
             "--coordinator: multi-process training needs the port's data "
             "parallelism (ROADMAP Queue 1 item 17), which is not ported yet")
-    if args.device_augment:
-        raise NotImplementedError(
-            "--device_augment: the in-graph augmentation (the JAX package's "
-            "data/device_aug.py, ROADMAP Queue 1 item 14) is not ported yet")
     import torch
 
     from yolo_nano_tpu_torch.cli.common import build_config, make_predict_fn
     from yolo_nano_tpu_torch.convert import tree_from_named
     from yolo_nano_tpu_torch.data.coco import COCODataset
+    from yolo_nano_tpu_torch.data.device_aug import (augment_seed,
+                                                     make_augment_fn)
     from yolo_nano_tpu_torch.data.loader import (DetectionLoader,
                                                  device_prefetch)
     from yolo_nano_tpu_torch.data.voc import VOCDataset
@@ -219,6 +224,8 @@ def main(argv=None):
     # mosaic merges 4 images' ground truth — scale the padding budget so
     # crowded mosaics don't silently truncate boxes
     max_boxes = args.max_boxes * (4 if args.mosaic else 1)
+    if args.device_augment:
+        dataset.device_augment = True
     if args.cache_images:
         dataset.enable_image_cache()
     loader = DetectionLoader(dataset, args.batch_size, max_boxes=max_boxes,
@@ -262,7 +269,14 @@ def main(argv=None):
 
     def get_step(size: int):
         if size not in steps:
-            steps[size] = make_train_step(cfg, tx, size, device=dev)
+            augment = None
+            if args.device_augment:
+                # the mosaic composes in the step from the batch's canvases
+                augment = make_augment_fn(
+                    size, out_dtype=torch.bfloat16 if args.bf16
+                    else torch.float32, mosaic=args.mosaic)
+            steps[size] = make_train_step(cfg, tx, size, device=dev,
+                                          augment=augment)
         return steps[size]
 
     tb_writer = None
@@ -295,15 +309,17 @@ def main(argv=None):
     loader.set_epoch(start_epoch)
 
     images_seen, loop_s, wait, eval_s = 0, 0.0, [0.0], []
+    aug_gen = torch.Generator(device=dev) if args.device_augment else None
     t0 = time.time()
     for epoch in range(start_epoch, args.max_epoch):
         t_epoch = time.perf_counter()
         # pinned staging and a copy stream: host augmentation and the copy
         # of the next batches overlap the card's work on this one
         batches = device_prefetch(loader, size=2, device=dev)
-        for iter_i, (images, boxes, labels) in enumerate(timed(batches,
-                                                               wait)):
-            if args.bf16:
+        for iter_i, (images, boxes, labels, *regions) in enumerate(
+                timed(batches, wait)):
+            if args.bf16 and not args.device_augment:
+                # (the augment emits the compute dtype from uint8 canvases)
                 images = images.to(torch.bfloat16)
             if args.profile_steps and not profiled and \
                     epoch == start_epoch and iter_i == 2:  # skip warm-up
@@ -328,7 +344,15 @@ def main(argv=None):
                 lo, hi = args.multi_scale_range
                 train_size = int(rng.integers(lo, hi)) * 32
             size = train_size if args.multi_scale else args.img_size
-            state, metrics = get_step(size)(state, images, boxes, labels)
+            if args.device_augment:
+                # keyed on the global iteration: a resumed run draws the
+                # augmentation an uninterrupted one drew
+                aug_gen.manual_seed(augment_seed(
+                    args.seed, epoch * epoch_size + iter_i))
+                state, metrics = get_step(size)(state, images, boxes, labels,
+                                                regions[0], aug_gen)
+            else:
+                state, metrics = get_step(size)(state, images, boxes, labels)
             images_seen += images.shape[0]
             if iter_i % 10 == 0:
                 m = {k: float(v) for k, v in metrics.items()}

@@ -5,8 +5,9 @@ VOC and COCO differ only in raw loading (`load_img_targets`) and accessors;
 the pull_item pipeline (mosaic coin-flip → augmentation chain → fixed [M,5]
 target) is identical (reference data/voc.py:214-235 == data/coco.py:200-230).
 
-The JAX package's in-graph augmentation contract (`device_augment=True`,
-its `data/device_aug.py`) is not ported yet: a dataset with it set raises.
+With `device_augment` set, pull_item returns the in-graph augmentation's
+input instead (`data/device_aug.py`): the uint8 letterboxed base canvas,
+its target and its image region.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import numpy as np
 from yolo_nano_tpu_torch.data.mosaic import load_mosaic
 from yolo_nano_tpu_torch.data.transforms import (
     color_transform,
+    resize_letterbox,
     train_transform,
     val_transform_with_boxes,
 )
@@ -36,8 +38,11 @@ class DetectionDatasetBase:
     mosaic: bool
     augment: bool
     _img_cache = None  # index → (img, target, h, w)
-    # the JAX package's in-graph augmentation switch; the port has no
-    # device augmentation yet, so pull_item raises when it is set
+    _canvas_cache = None  # device_augment: index → (canvas_u8, target, region)
+    # device_augment=True switches pull_item to the in-graph augmentation
+    # contract (data/device_aug.py): host work shrinks to decode + uint8
+    # letterbox; photometric/crop/mosaic/mirror/normalize run inside the
+    # train step. pull_item then returns (canvas_u8, target, region).
     device_augment: bool = False
 
     def __len__(self) -> int:
@@ -76,10 +81,7 @@ class DetectionDatasetBase:
         Mosaic with p=0.5 when enabled (reference voc.py:216); val mode remaps
         boxes into the letterboxed frame."""
         if self.device_augment:
-            raise NotImplementedError(
-                "device_augment: the in-graph augmentation (the JAX "
-                "package's data/device_aug.py, ROADMAP Queue 1 item 14) is "
-                "not ported yet")
+            return self._pull_item_device(index)
         rng = rng or np.random.default_rng()
         if self.mosaic and rng.integers(2):
             others = rng.choice(len(self.ids), size=3, replace=False)
@@ -97,3 +99,35 @@ class DetectionDatasetBase:
             img, target[:, :4], target[:, 4], self.img_size, rng)
         out = np.concatenate([boxes, labels[:, None]], 1).astype(np.float32)
         return img, out, h, w, scale, offset
+
+    def _pull_item_device(self, index: int):
+        """(canvas uint8 BGR [S0,S0,3], target [M,5] canvas-normalized,
+        region [5] = image-region rect + crop_allowed). Host cost: decode
+        and one uint8 letterbox; everything else, the mosaic included
+        (device_aug.compose_mosaic takes its tiles from the batch's other
+        rows), runs in the train step.
+
+        The canvas is deterministic per index (all randomness lives on the
+        device), so under enable_image_cache the finished triple is memoized
+        and the decoded image evicted (keeping both would double the cache);
+        warm epochs then cost only the batch's stack and pad on the host.
+        The triple is read-only downstream (np.stack copies)."""
+        if self._img_cache is not None:
+            if self._canvas_cache is None:
+                self._canvas_cache = {}
+            hit = self._canvas_cache.get(index)
+            if hit is not None:
+                return hit
+        img, target, _, _ = self._load(index)
+        if len(target) == 0:
+            target = np.zeros((1, 5), np.float32)  # reference voc.py:226-227
+        canvas, boxes, scale, offset = resize_letterbox(
+            img, self.img_size, target[:, :4], dtype=np.uint8)
+        out = np.concatenate([boxes, target[:, 4:5]], 1).astype(np.float32)
+        region = np.array([offset[0], offset[1], offset[0] + scale[0],
+                           offset[1] + scale[1],
+                           1.0 if self.augment else 0.0], np.float32)
+        if self._img_cache is not None:
+            self._canvas_cache[index] = (canvas, out, region)
+            self._img_cache.pop(index, None)
+        return canvas, out, region

@@ -6,7 +6,9 @@
     augmented in a thread pool (cv2/numpy release the GIL) or in spawned
     worker processes, one child np.random.Generator per item keyed on
     [seed, epoch, position], so that both worker modes and every worker
-    count give the same batches, and `set_epoch` replays any epoch;
+    count give the same batches, and `set_epoch` replays any epoch; for a
+    dataset with `device_augment`, uint8 base canvases and their regions,
+    the input of the in-graph augmentation (`data/device_aug.py`);
   * `device_prefetch`: each batch into pinned host memory, copied to the
     card on a copy stream of its own up to `size` batches ahead of the
     consumer, whose stream waits on the copy's event;
@@ -17,8 +19,7 @@
 
 The multi-process shard of both loaders (`process_shard`) and `sharding`
 of `device_prefetch` need the port's data parallelism (ROADMAP Queue 1
-item 17): they raise. A dataset with `device_augment` (item 14) raises in
-its `pull_item`.
+item 17): they raise.
 """
 
 from __future__ import annotations
@@ -61,9 +62,9 @@ def _pp_init(dataset):
 
 
 def _pp_load(args):
-    index, seed_key = args
+    index, seed_key, width = args
     rng = np.random.default_rng(seed_key)
-    return _PP_DATASET.pull_item(index, rng)[:2]
+    return _PP_DATASET.pull_item(index, rng)[:width]
 
 
 def pad_targets(targets: List[np.ndarray], max_boxes: int
@@ -85,7 +86,9 @@ def pad_targets(targets: List[np.ndarray], max_boxes: int
 
 class DetectionLoader:
     """Iterable over epochs of (images [B,S,S,3] f32 NHWC, boxes [B,M,4],
-    labels [B,M] int32), numpy."""
+    labels [B,M] int32), numpy; for a dataset with device_augment,
+    (images uint8 base canvases, boxes, labels, regions [B,5]), the input
+    of the in-graph augmentation (data/device_aug.py)."""
 
     def __init__(self, dataset, batch_size: int, max_boxes: int =
                  MAX_BOXES_DEFAULT, shuffle: bool = True,
@@ -178,7 +181,7 @@ class DetectionLoader:
             np.random.default_rng(self.seed + self._epoch).shuffle(order)
         return order
 
-    def __iter__(self) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
+    def __iter__(self) -> Iterator[Tuple[np.ndarray, ...]]:
         order = self._epoch_order()
         self._epoch += 1
         nb = len(self)
@@ -188,14 +191,18 @@ class DetectionLoader:
             # identical per-item RNG streams in thread and process modes
             return [self.seed, epoch, pos]
 
+        # items: (canvas_u8, target, region) for a dataset with
+        # device_augment, else (image, target)
+        width = 3 if getattr(self.dataset, "device_augment", False) else 2
+
         def load_one(pos: int):
             rng = np.random.default_rng(seed_key(pos))
-            return self.dataset.pull_item(int(order[pos]), rng)[:2]
+            return self.dataset.pull_item(int(order[pos]), rng)[:width]
 
         def map_batch(pool, lo: int, hi: int):
             if self.worker_mode == "process":
                 return list(pool.map(
-                    _pp_load, [(int(order[p]), seed_key(p))
+                    _pp_load, [(int(order[p]), seed_key(p), width)
                                for p in range(lo, hi)]))
             return list(pool.map(load_one, range(lo, hi)))
 
@@ -230,7 +237,9 @@ class DetectionLoader:
                         images = np.stack([it[0] for it in items])
                         boxes, labels = pad_targets([it[1] for it in items],
                                                     self.max_boxes)
-                        if not _put((images, boxes, labels)):
+                        batch = (images, boxes, labels) + tuple(
+                            np.stack(f) for f in list(zip(*items))[2:])
+                        if not _put(batch):
                             return
             except BaseException as e:  # surface worker errors, don't hang
                 _put(e)

@@ -230,3 +230,61 @@ def resize_images(images: torch.Tensor, size: int) -> torch.Tensor:
     w = _resize_weights(images.shape[1], size, images.device).to(images.dtype)
     x = torch.einsum("bhwc,hH->bHwc", images, w)
     return torch.einsum("bHwc,wW->bHWc", x, w)
+
+
+def _linear_taps(n_in: int, n_out: int, scale: torch.Tensor,
+                 translation: torch.Tensor):
+    """The two input taps of each output sample along one axis, per item:
+    (first index [B, n_out] int64, weights [B, n_out, 2] f32), the
+    nonzero entries of `jax.image.scale_and_translate`'s 'linear' weight
+    matrix (antialias off): the triangle kernel at
+    sample = (x + 0.5)/s − t/s − 0.5, each column divided by its sum (0
+    where the sum is ≤ 1000·eps), and 0 where the sample lies outside
+    [−0.5, n_in − 0.5]. The arithmetic is JAX's, op for op, so the weights
+    are its weights bit for bit. scale, translation: [B] f32."""
+    inv = 1.0 / scale
+    xs = torch.arange(n_out, dtype=torch.float32, device=scale.device) + 0.5
+    sample = xs[None] * inv[:, None] - (translation * inv)[:, None] - 0.5
+    j0 = torch.floor(sample)
+    taps = []
+    for j in (j0, j0 + 1.0):
+        w = torch.clamp(1.0 - (sample - j).abs(), min=0.0)
+        taps.append(torch.where((j >= 0) & (j <= n_in - 1), w, 0.0))
+    total = taps[0] + taps[1]
+    keep = (total.abs() > 1000.0 * float(np.finfo(np.float32).eps)) & (
+        sample >= -0.5) & (sample <= n_in - 0.5)
+    div = torch.where(total != 0, total, 1.0)
+    weights = torch.stack([torch.where(keep, w / div, 0.0) for w in taps], -1)
+    return j0.to(torch.int64), weights
+
+
+def scale_and_translate(images: torch.Tensor, out_size: int,
+                        scale: torch.Tensor, translation: torch.Tensor
+                        ) -> torch.Tensor:
+    """[B,H,W,C] (any real dtype) → [B,out_size,out_size,C] f32: each item
+    resampled at output pixel (y, x) from input (y_in, x_in) =
+    ((y + 0.5 − t_y)/s_y − 0.5, (x + 0.5 − t_x)/s_x − 0.5), bilinear with
+    no antialiasing filter; a sample outside the input gives 0. It is
+    `jax.image.scale_and_translate(img, shape, (0, 1), scale, translation,
+    "linear", antialias=False)` per item. scale, translation: [B, 2] f32 in
+    (y, x) order.
+
+    Each axis is a two-tap gather with JAX's weights (`_linear_taps`), not a
+    product with the weight matrix: elementwise f32 on the card, so the
+    result does not depend on the process's TF32 settings. The sums of two
+    products round where JAX's matrix product (its own order, with FMA on
+    the CPU) does not, a few f32 ulps of the pixel values."""
+    x = _resample_rows(images, out_size, scale[:, 0], translation[:, 0])
+    x = _resample_rows(x.transpose(1, 2), out_size, scale[:, 1],
+                       translation[:, 1])
+    return x.transpose(1, 2)
+
+
+def _resample_rows(x: torch.Tensor, out_size: int, scale, translation):
+    """[B,N,...] → [B,out_size,...] f32 along axis 1 (`_linear_taps`)."""
+    n = x.shape[1]
+    j, w = _linear_taps(n, out_size, scale, translation)
+    w = w.reshape(w.shape + (1,) * (x.dim() - 2))
+    rows = torch.arange(x.shape[0], device=x.device)[:, None]
+    return (x[rows, j.clamp(0, n - 1)].float() * w[:, :, 0]
+            + x[rows, (j + 1).clamp(0, n - 1)].float() * w[:, :, 1])

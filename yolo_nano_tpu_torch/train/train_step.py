@@ -1,6 +1,6 @@
-"""The training step: multi-scale resize, target assignment, forward and
-loss, backward, SGD, EMA and the NaN guard, in one call that reads nothing
-back to the host.
+"""The training step: the in-graph augmentation or the multi-scale resize,
+target assignment, forward and loss, backward, SGD, EMA and the NaN guard,
+in one call that reads nothing back to the host.
 
 The model runs through `torch.func.functional_call` on a structure-only
 copy (on the meta device) with the state's tensors swapped in: the
@@ -35,11 +35,18 @@ class TrainStep:
     images [B,S,S,3] f32 NHWC, normalized, on the step's device (resized to
     `input_size` when S differs); gt_boxes [B,M,4] normalized corners;
     gt_labels [B,M] int (−1 pads). The parts are methods, so that each can
-    be timed alone."""
+    be timed alone.
+
+    With `augment` (data.device_aug.make_augment_fn(input_size)) the step
+    is step(state, images_u8, gt_boxes, gt_labels, regions, gen): uint8
+    base canvases in, the in-graph augmentation drawn from the generator
+    `gen` on the step's device, its output already at input_size (no
+    multi-scale resize), then the same body."""
 
     def __init__(self, cfg: YoloNanoConfig, tx: SGD, input_size: int,
-                 device=None):
+                 device=None, augment=None):
         self.cfg, self.tx, self.input_size = cfg, tx, input_size
+        self.augment = augment
         self.device = resolve_device(device)
         self.skeleton = init_yolo_nano(torch.Generator(), cfg,
                                        device="cpu").to("meta")
@@ -84,7 +91,14 @@ class TrainStep:
                           select(ok, new_trace, state.trace),
                           state.count + accepted, new_step, ema_p, ema_s)
 
-    def __call__(self, state: TrainState, images, gt_boxes, gt_labels):
+    def __call__(self, state: TrainState, images, gt_boxes, gt_labels,
+                 regions=None, gen=None):
+        if self.augment is not None:
+            images, gt_boxes, gt_labels = self.augment(
+                images, gt_boxes, gt_labels, regions, gen)
+        elif regions is not None or gen is not None:
+            raise TypeError("regions and gen are the augmenting step's "
+                            "arguments; this step was built without augment")
         targets = self.targets(gt_boxes, gt_labels)
         total, losses, params, new_stats = self.loss(state, images, targets)
         grads = torch.autograd.grad(total, list(params.values()))
@@ -98,7 +112,8 @@ class TrainStep:
 
 
 def make_train_step(cfg: YoloNanoConfig, tx: SGD, input_size: int,
-                    device=None) -> TrainStep:
+                    device=None, augment=None) -> TrainStep:
     """The step for one input size, on CUDA unless `device` names another;
-    multi-scale training builds one per size."""
-    return TrainStep(cfg, tx, input_size, device)
+    multi-scale training builds one per size. `augment`: the in-graph
+    augmentation (TrainStep)."""
+    return TrainStep(cfg, tx, input_size, device, augment)
