@@ -115,7 +115,24 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
      eval hooks' bf16 launches; the augment's ms and launches per call at
      416 and 608 px, the CLI's img/s and loader share beside phase 7's run
      C, the pinned copy of a uint8 batch, peak memory;
- 11. a JSON line of kernel numbers, the card line, and the result line.
+ 11. data parallelism on an NCCL group of world size 1 (one card; two
+     ranks are the CPU tests'): make_predict_fn(mesh, process_shard,
+     local_rows=True) on the 1.0x artifact in f32 and bf16 and
+     load_predictor(mesh=) at batch 32, each with 16 + 6 launches a
+     forward, its detections equal to the predictor's without a mesh bit
+     for bit and held to the plain path, and its ms beside that one's;
+     make_train_step(mesh=) at phase 4's setup, 3 steps against 3 without
+     a mesh (each field within 4x their error against the same steps in
+     f64 on the card), one under set_sync_debug_mode("error"), the steps'
+     ms; the gradient's all-reduce, the all-gather of a batch's uint8
+     canvases and a mesh step's collectives by CUDA events, host issue and
+     torch.profiler (calls, device ms); then cli.train --coordinator
+     (1 process) --device_augment --mosaic --ema, 1 epoch on phase 7's
+     split at the default lr from a state that detects the scenes'
+     classes, against the same run without --coordinator: logged losses
+     within 1e-5, the eval hooks' detections matched and their AP within
+     EVAL_BF16_AP_ATOL;
+ 12. a JSON line of kernel numbers, the card line, and the result line.
 
 A bound is the least time the card could take for a kernel's work: the
 larger of its bytes (each input read once, each output written once) over
@@ -130,7 +147,9 @@ and marks the side the kernel's tile rule picks: in f32 at 1.0x, then in
 bf16 at 0.5x (the artifact) and at 1.0x (the f32 model cast); it replaces
 phase 3 and prints no result line. --sweep-dw-pw-tiles does the same for
 fused_dw_pw at each head level over a grid of tiles (columns x rows).
---graph-only runs phase 9 alone after phase 1, with no result line.
+--graph-only runs phase 9 alone after phase 1, with no result line;
+--data-parallel-only runs phase 11 alone after phase 1, on the sets of
+phases 6 and 7 written anew, with no result line.
 """
 
 from __future__ import annotations
@@ -1983,7 +2002,8 @@ def watch_cli_train():
     kept with their host batch; each eval hook's evaluate is entered with
     no kernel launched since the last hook (the train steps run unfused
     convs), its launches counted alone, and the precision flags read
-    around it. → that dict, filled as main runs."""
+    around it, and the detections it returned kept. → that dict, filled
+    as main runs."""
     import sys
 
     from yolo_nano_tpu_torch.data import loader
@@ -2028,7 +2048,14 @@ def watch_cli_train():
                                  f"{during_steps}")
         flags = precision_flags()
         reset_counts()
-        out = evaluate(self, fn)
+        dets = []
+
+        def kept(images):
+            got = fn(images)
+            dets.append(tuple(np.asarray(t) for t in got))
+            return got
+
+        out = evaluate(self, kept)
         counts = read_counts()
         reset_counts()
         forwards = -(-len(self.dataset) // self.batch_size)
@@ -2040,7 +2067,8 @@ def watch_cli_train():
                                  f"flags {flags} → {precision_flags()}")
         present = {c: ap for c, ap in self.aps.items() if self.gt_npos[c]}
         w["hooks"].append(dict(counts=counts, forwards=forwards,
-                               flags=flags, aps=present))
+                               flags=flags, aps=present,
+                               dets=tuple(map(np.concatenate, zip(*dets)))))
         return out
 
     loader.device_prefetch, VOCEvaluator.evaluate = (prefetch_watched,
@@ -3165,6 +3193,375 @@ def phase_device_aug(voc_root: str, tmp: str, state, cfg, cli_stats: dict
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: data parallelism on an NCCL group
+# ---------------------------------------------------------------------------
+
+DP_STEPS = 3
+DP_LOSS_RTOL = 1e-5
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def collectives(fn, iters: int = 3):
+    """fn's collectives per call and the device ms of their work (NCCL
+    kernels and copies) per call, from torch.profiler; None (the reason
+    printed) if it records no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    try:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+    except (RuntimeError, AttributeError) as e:
+        print(f"  collectives: not measured ({e})")
+        return None
+    calls = sum(e.count for e in events if e.key.startswith("c10d::"))
+    device_us = sum(e.self_device_time_total for e in events
+                    if e.device_type == DeviceType.CUDA
+                    and ("nccl" in e.key.lower() or "memcpy" in e.key.lower()
+                         or "memset" in e.key.lower()))
+    return dict(calls=calls / iters, device_ms=device_us / 1e3 / iters)
+
+
+def sharded_predicts(mesh, images_np) -> dict:
+    """make_predict_fn(mesh, process_shard, local_rows=True) on the 1.0x
+    artifact in f32 and at its bf16 default, and load_predictor(mesh=) on
+    it at batch BATCH: each against the same predictor without a mesh, bit
+    for bit, its launches counted alone, its kernel path against its plain
+    path (f32 slot for slot, bf16 matched), and its ms beside the
+    unsharded one's (numpy in, numpy out)."""
+    from yolo_nano_tpu_torch.cli.common import make_predict_fn
+    from yolo_nano_tpu_torch.config import config_from_json
+    from yolo_nano_tpu_torch.convert import load_npz
+    from yolo_nano_tpu_torch.parallel.mesh import batch_sharding
+    from yolo_nano_tpu_torch.serving import load_predictor
+
+    tree, meta = load_npz(NPZ)
+    cfg = config_from_json(meta)
+    sh = batch_sharding(mesh)
+    rows = images_np[sh.rows(BATCH)]
+    made = {}
+    for dtype in ("float32", "bfloat16"):
+        made[f"make_predict_fn_{dtype}"] = (
+            make_predict_fn(tree, None, cfg, SIZE, fold=False, dtype=dtype,
+                            mesh=mesh, process_shard=(sh.index, sh.count),
+                            local_rows=True),
+            make_predict_fn(tree, None, cfg, SIZE, fold=False, dtype=dtype),
+            rows)
+    made["load_predictor_float32"] = (
+        load_predictor(NPZ, mesh=mesh, batch_buckets=(BATCH,)),
+        load_predictor(NPZ, prefer_params=True, batch_buckets=(BATCH,)),
+        images_np)
+    out = {}
+    for tag, (fn, alone, x) in made.items():
+        bf16 = "bfloat16" in tag
+        fn(x)  # warm-up
+        reset_counts()
+        got = fn(x)
+        counts = read_counts()
+        if counts != want_counts(1, bf16):
+            raise AssertionError(f"{tag}: launch counts {counts}, expected "
+                                 f"{want_counts(1, bf16)}")
+        want = alone(images_np)
+        if not all(np.array_equal(g, w) for g, w in zip(got, want)):
+            raise AssertionError(f"{tag}: the sharded detections differ from "
+                                 "the predictor's without a mesh")
+        with plain_kernels():
+            plain = fn(x)
+        if bf16:
+            _, cutoffs = kernel_vs_plain(alone, images_np)
+            agree = match_detections(got, plain, cfg.conf_thresh,
+                                     cfg.nms_thresh, **BF16_MATCH,
+                                     cutoffs=cutoffs)
+        else:
+            agree = check_detections(tag, got, plain)
+        ms = {}
+        for key, f, xx in (("sharded", fn, x), ("alone", alone, images_np)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                f(xx)
+            ms[key] = (time.perf_counter() - t0) / 10 * 1e3
+        out[tag] = dict(counts=counts, detections=int(got[3].sum()),
+                        plain=agree, ms=ms["sharded"], alone_ms=ms["alone"])
+        print(f"  {tag}: launches {counts}; {int(got[3].sum())} detections "
+              f"bit-equal to the predictor without a mesh; against the plain "
+              f"path {agree}; {ms['sharded']:.3f} ms a batch of {BATCH} "
+              f"(numpy in and out), {ms['alone']:.3f} ms without a mesh")
+    return out
+
+
+def sharded_steps(mesh) -> dict:
+    """make_train_step(mesh=) against the step without a mesh, phase 4's
+    setup (1.0x COCO, SIZE px, TRAIN_BATCH): DP_STEPS steps of each from
+    one init under cudnn.deterministic, the first step's losses within
+    TRAIN_LOSS_RTOL, each field of the mesh step's state after the last
+    against the same steps in f64 on the card within 4x the error of the
+    steps without a mesh (phase 4's fields_close; from init this model's
+    f32 trajectories part by rounding, so the later losses are not held
+    to each other); one mesh step under set_sync_debug_mode("error"); the
+    steps' ms and host ms, then a mesh step, an all-reduce of the
+    gradient's flat buffer and the all-gather of a batch's uint8 canvases
+    (the mosaic's), each by CUDA
+    events, by the host's issue, and by torch.profiler (its collectives
+    a call and their device ms: at world size 1 NCCL may move nothing)."""
+    import torch.distributed as dist
+
+    from yolo_nano_tpu_torch.config import config_from_json
+    from yolo_nano_tpu_torch.convert import load_npz
+    from yolo_nano_tpu_torch.models.yolo_nano import init_yolo_nano
+    from yolo_nano_tpu_torch.parallel.mesh import mesh_device, mesh_group
+    from yolo_nano_tpu_torch.parallel.multiprocess import all_gather_rows
+    from yolo_nano_tpu_torch.train import (create_train_state,
+                                           make_optimizer, make_train_step)
+
+    cfg = config_from_json(load_npz(NPZ)[1])
+    images, boxes, labels = (torch.from_numpy(a).cuda() for a in render_scenes(
+        TRAIN_BATCH, SIZE, seed=1, max_boxes=MAX_BOXES))
+    tx = make_optimizer(lambda count: TRAIN_LR)
+    start = create_train_state(init_yolo_nano(
+        torch.Generator().manual_seed(0), cfg), tx, use_ema=True)
+    steps = dict(mesh=make_train_step(cfg, tx, SIZE, mesh=mesh),
+                 alone=make_train_step(cfg, tx, SIZE))
+    torch.backends.cudnn.deterministic = True
+    try:
+        states, losses = {}, {}
+        for key, step in steps.items():
+            state = start
+            for i in range(DP_STEPS):
+                state, metrics = step(state, images, boxes, labels)
+                if i == 0:  # from one state: apart by rounding only
+                    losses[key] = {k: float(metrics[k]) for k in LOSS_NAMES}
+            states[key] = state
+        ref = start.to(mesh_device(mesh), torch.float64)
+        for _ in range(DP_STEPS):
+            ref, _ = steps["alone"](ref, images.double(), boxes, labels)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    errors, worst_leaf = fields_close("mesh step vs the step without one",
+                                      states["mesh"],
+                                      states["alone"].to("cpu"),
+                                      ref.to("cpu"))
+    for k in LOSS_NAMES:
+        g, w = losses["mesh"][k], losses["alone"][k]
+        if not abs(g - w) <= TRAIN_LOSS_RTOL * abs(w):
+            raise AssertionError(f"mesh step: first step's {k} {g} vs {w}")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        synced, _ = steps["mesh"](start, images, boxes, labels)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if int(synced.step) != 1:
+        raise AssertionError("the mesh step did not take its step")
+    print(f"  make_train_step(mesh=) against the step without a mesh, "
+          f"{DP_STEPS} steps from init at batch {TRAIN_BATCH}, both against "
+          "the same steps in f64 on the card, error over each field's norm, "
+          "mesh / without: " + ", ".join(
+              f"{f} {e[0]:.3g} / {e[1]:.3g}" for f, e in errors.items())
+          + f"; the worst tensor at {worst_leaf:.3g} of the CPU tests' leaf "
+          "tolerance; one mesh step under set_sync_debug_mode('error')")
+    ms = {key: time_ms(lambda: step(start, images, boxes, labels), iters=10)
+          for key, step in steps.items()}
+    host = {key: host_ms(lambda: step(start, images, boxes, labels))
+            for key, step in steps.items()}
+    numel = sum(v.numel() for v in start.params.values()) + 5
+    buf = torch.zeros(numel, device=mesh_device(mesh))
+    group = mesh_group(mesh)
+    canvases = torch.zeros((TRAIN_BATCH, SIZE, SIZE, 3), dtype=torch.uint8,
+                           device=mesh_device(mesh))
+    calls = dict(
+        all_reduce=lambda: dist.all_reduce(buf, group=group),
+        all_gather=lambda: all_gather_rows(canvases, group),
+        step=lambda: steps["mesh"](start, images, boxes, labels))
+    comm = {key: dict(ms=time_ms(fn, iters=20), host_ms=host_ms(fn),
+                      profile=collectives(fn))
+            for key, fn in calls.items() if key != "step"}
+    comm["step"] = dict(profile=collectives(calls["step"]))
+    out = dict(step_ms=ms["mesh"], alone_step_ms=ms["alone"],
+               step_host_ms=host["mesh"], alone_step_host_ms=host["alone"],
+               grad_numel=numel, canvas_bytes=canvases.numel(),
+               comm=comm, fields=errors, worst_leaf=worst_leaf,
+               losses=losses)
+    prof = {k: v["profile"] or {} for k, v in comm.items()}
+    show = lambda k: (f"{prof[k]['device_ms']:.4f} ms device"  # noqa: E731
+                      if prof[k] else "device not measured")
+    print(f"  train step {ms['mesh']:.2f} ms with the group, "
+          f"{ms['alone']:.2f} ms without (batch {TRAIN_BATCH}); host ms to "
+          f"issue one, {host['mesh']:.2f} and {host['alone']:.2f}; "
+          f"{prof['step'].get('calls')} collectives a mesh step, "
+          f"{show('step')}; the gradient's all-reduce ({numel} f32) "
+          f"{comm['all_reduce']['ms']:.4f} ms by CUDA events, "
+          f"{comm['all_reduce']['host_ms']:.4f} ms to issue, "
+          f"{show('all_reduce')}; all-gather of the batch's uint8 canvases "
+          f"({canvases.numel() / 2**20:.2f} MiB) "
+          f"{comm['all_gather']['ms']:.4f} ms, "
+          f"{comm['all_gather']['host_ms']:.4f} ms to issue, "
+          f"{show('all_gather')}")
+    return out
+
+
+def detecting_state(cfg):
+    """cli.train's initial state (seed 0, EMA) with each head's objectness
+    biases raised from −4.6 to 0 and the class biases past the scenes' 3
+    classes lowered to −8, so that its eval hook detects those classes
+    from the first epoch (boxes at random: the APs are small but scored;
+    a random init detects nothing and scores −1). → the state."""
+    from yolo_nano_tpu_torch.models.yolo_nano import init_yolo_nano
+    from yolo_nano_tpu_torch.train.state import (create_train_state,
+                                                 make_optimizer)
+
+    state = create_train_state(
+        init_yolo_nano(torch.Generator().manual_seed(0), cfg, device="cpu"),
+        make_optimizer(lambda count: 1e-3), use_ema=True)
+    a, c = cfg.num_anchors_per_level, cfg.num_classes
+    for tree in (state.params, state.ema_params):
+        for name, t in tree.items():
+            if name.startswith("head") and name.endswith(".out.bias"):
+                t[:a] = 0.0
+                t[a:(1 + c) * a].view(a, c)[:, len(VOC_SHAPE_NAMES):] = -8.0
+    return state
+
+
+def phase_data_parallel(voc_root: str, tmp: str, images_np) -> dict:
+    """Data parallelism on the card, on an NCCL group of world size 1
+    (NCCL refuses two ranks on one device; two ranks are the CPU tests'):
+    (a) make_predict_fn(mesh, process_shard, local_rows) on the 1.0x
+    artifact in f32 and bf16 and load_predictor(mesh=), against their
+    predictors without a mesh bit for bit and their plain paths; (b)
+    make_train_step(mesh=) against the step without a mesh (sharded_steps);
+    then, the group destroyed, (c) cli.train.main with --coordinator
+    --num_processes 1 --process_id 0 --device_augment --mosaic --ema, 1
+    epoch on phase 7's split at the default lr, resumed from
+    detecting_state, against the same run without --coordinator under
+    cudnn.deterministic: logged losses within DP_LOSS_RTOL, the eval
+    hooks' detections matched (match_detections, bf16) and their AP
+    within EVAL_BF16_AP_ATOL. A group of one gives the bits of BN without
+    a group (the means of the processes' means), so the two runs are
+    expected to agree bit for bit."""
+    from yolo_nano_tpu_torch.parallel.mesh import make_mesh
+    from yolo_nano_tpu_torch.parallel.multiprocess import (initialize,
+                                                           shutdown_tolerant)
+
+    t_phase = time.perf_counter()
+    port = free_port()
+    print(f"[11] data parallelism: an NCCL group of 1 process on "
+          f"tcp://127.0.0.1:{port}")
+    initialize(f"127.0.0.1:{port}", 1, 0)
+    try:
+        mesh = make_mesh()
+        out = dict(predict=sharded_predicts(mesh, images_np),
+                   step=sharded_steps(mesh))
+    finally:
+        shutdown_tolerant()
+
+    from yolo_nano_tpu_torch.cli.common import build_config
+    from yolo_nano_tpu_torch.utils.checkpoint import CheckpointManager
+
+    start = os.path.join(tmp, "dp_start")
+    CheckpointManager(start).save(0, detecting_state(build_config("voc")))
+    common = ["-d", "voc", "--root", voc_root, "--voc_sets", "2007",
+              "--img_size", str(SIZE), "--batch_size", str(TRAIN_BATCH),
+              "--num_workers", "4", "--device_augment", "--mosaic", "--ema",
+              "--max_epoch", "1", "--eval_epoch", "1", "--resume", start]
+    dirs = {tag: os.path.join(tmp, f"run_dp_{tag}")
+            for tag in ("group", "alone")}
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs["group"] = run_cli_train("run H, --coordinator", common + [
+            "--save_folder", dirs["group"], "--coordinator",
+            f"127.0.0.1:{free_port()}", "--num_processes", "1",
+            "--process_id", "0"])
+        runs["alone"] = run_cli_train("run I, H without --coordinator",
+                                      common + ["--save_folder",
+                                                dirs["alone"]])
+    finally:
+        torch.backends.cudnn.deterministic = False
+    rows = {}
+    for tag, d in dirs.items():
+        with open(os.path.join(d, "voc", "yolo_nano",
+                               "train_log.jsonl")) as f:
+            rows[tag] = [json.loads(line) for line in f]
+    if not rows["alone"] or len(rows["group"]) != len(rows["alone"]):
+        raise AssertionError(f"log rows {len(rows['group'])} against "
+                             f"{len(rows['alone'])}")
+    loss_rdiff = 0.0
+    for g, w in zip(rows["group"], rows["alone"]):
+        if (g["epoch"], g["iter"], g["step"]) != (w["epoch"], w["iter"],
+                                                  w["step"]):
+            raise AssertionError(f"log rows {g} and {w} differ")
+        for k in LOSS_NAMES:
+            loss_rdiff = max(loss_rdiff, abs(g[k] - w[k]) / abs(w[k]))
+    if not loss_rdiff <= DP_LOSS_RTOL:
+        raise AssertionError(f"--coordinator's losses {loss_rdiff} off the "
+                             "run without it")
+    hooks = {tag: r["watch"]["hooks"] for tag, r in runs.items()}
+    if len(hooks["group"]) != len(hooks["alone"]) or not hooks["alone"]:
+        raise AssertionError("the runs' eval hooks differ in number")
+    ap_gap, det_equal, matches = 0.0, [], []
+    cfg = runs["alone"]["cfg"]
+    for hg, hw in zip(hooks["group"], hooks["alone"]):
+        if hg["aps"].keys() != hw["aps"].keys() or \
+                min(hw["aps"].values()) < 0:
+            raise AssertionError(f"the eval hooks scored {hg['aps']} and "
+                                 f"{hw['aps']}: a class undetected")
+        ap_gap = max([ap_gap] + [abs(hg["aps"][c] - hw["aps"][c])
+                                 for c in hw["aps"]])
+        det_equal.append(all(np.array_equal(g, w) for g, w in
+                             zip(hg["dets"], hw["dets"])))
+        matches.append(match_detections(hg["dets"], hw["dets"],
+                                        cfg.conf_thresh, cfg.nms_thresh,
+                                        **BF16_MATCH))
+        if not hw["dets"][3].any():
+            raise AssertionError("the eval hook detected nothing")
+    if not ap_gap <= EVAL_BF16_AP_ATOL:
+        raise AssertionError(f"eval hooks' AP {ap_gap} apart")
+    params_equal = all(
+        torch.equal(runs["group"]["state"].params[k].cpu(), v.cpu())
+        for k, v in runs["alone"]["state"].params.items())
+    if "data-parallel over 1 processes" not in "".join(
+            runs["group"]["watch"]["tee"].text):
+        raise AssertionError("run H did not train on its process group")
+    print(f"  run H (--coordinator, NCCL, 1 process) against run I, both "
+          f"from detecting_state at the default lr: {len(rows['alone'])} "
+          f"log rows, losses within {loss_rdiff:.3g} relative (tolerance "
+          f"{DP_LOSS_RTOL:g}); final params equal bit for bit "
+          f"{params_equal}; eval hook APs {[h['aps'] for h in hooks['group']]}"
+          f" against {[h['aps'] for h in hooks['alone']]}, gap "
+          f"{ap_gap:.3g}; detections "
+          f"{[int(h['dets'][3].sum()) for h in hooks['group']]} against "
+          f"{[int(h['dets'][3].sum()) for h in hooks['alone']]}, bit-equal "
+          f"{det_equal}, matched {matches}")
+    out["cli"] = {tag: dict(images=r["images"], loop_s=r["loop_s"],
+                            img_per_s=r["images"] / r["loop_s"],
+                            eval_hook_s=r["eval_s"],
+                            eval_hook_counts=[h["counts"] for h in
+                                              r["watch"]["hooks"]],
+                            eval_hook_aps=[h["aps"] for h in
+                                           r["watch"]["hooks"]],
+                            cli_s=r["cli_s"])
+                  for tag, r in runs.items()}
+    out.update(loss_rdiff=loss_rdiff, ap_gap=ap_gap, dets_equal=det_equal,
+               dets_matched=matches, params_equal=params_equal)
+    out["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 11: {out['seconds']:.1f} s")
+    return out
+
+
 def kernel_row(name, source, rows, per_fwd, launches, replaces):
     """One JSON row per kernel: its main-path calls of one forward summed
     (the two head pairs of a level share a shape, so one is timed twice)."""
@@ -3190,11 +3587,22 @@ def main():
                         "head level instead of the main path")
     parser.add_argument("--graph-only", action="store_true",
                         help="phase 9 alone, after phase 1")
+    parser.add_argument("--data-parallel-only", action="store_true",
+                        help="phase 11 alone, after phase 1, on newly "
+                        "written sets")
     args = parser.parse_args()
     card = phase_device_and_build()
     if args.graph_only:
         with tempfile.TemporaryDirectory() as tmp:
             phase_graph(render_scenes(BATCH, SIZE), tmp, card)
+        print(card)
+        return
+    if args.data_parallel_only:
+        with tempfile.TemporaryDirectory() as tmp:
+            voc_root = write_eval_sets(tmp)[0]
+            write_train_split(voc_root)
+            print(json.dumps(phase_data_parallel(
+                voc_root, tmp, render_scenes(BATCH, SIZE))))
         print(card)
         return
     images_np = render_scenes(BATCH, SIZE)
@@ -3253,6 +3661,7 @@ def main():
         device_aug = phase_device_aug(
             voc_root, tmp, train_state, config_from_json(load_npz(NPZ)[1]),
             cli_stats)
+        data_parallel = phase_data_parallel(voc_root, tmp, images_np)
     print(json.dumps({"main_path": stats, "batch": BATCH, "size": SIZE,
                       "training": train_stats,
                       "fused_dw_pw_per_shape": dw_rows,
@@ -3264,7 +3673,8 @@ def main():
                       "make_predict_fn_bf16_wide": stats_wide,
                       "eval": eval_stats, "train_cli": cli_stats,
                       "serving_tools": serving, "graph": graph,
-                      "device_aug": device_aug}))
+                      "device_aug": device_aug,
+                      "data_parallel": data_parallel}))
     # the main path runs the heads in f32 with leaky/leaky
     main_dw = [r for r in dw_rows if r["dtype"] == "float32"
                and r["acts"] == "leaky/leaky"]
@@ -3331,6 +3741,12 @@ def main():
         row["launches_device_aug_eval_hooks"] = sum(
             h[row["name"]] for r in device_aug["cli"].values()
             for h in r["eval_hook_counts"])
+    for row in kernels:  # phase 11: sharded predicts, then the CLI's hooks
+        name = row["name"]
+        row["launches_data_parallel"] = sum(
+            r["counts"][name] for r in data_parallel["predict"].values()
+        ) + sum(h[name] for h in data_parallel["cli"]["group"][
+            "eval_hook_counts"])
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

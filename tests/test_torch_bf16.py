@@ -494,10 +494,19 @@ def test_make_predict_fn_refuses_the_mesh_branches(small_tree):
     from yolo_nano_tpu_torch.cli.common import make_predict_fn
     from yolo_nano_tpu_torch.config import YoloNanoConfig
 
+    from yolo_nano_tpu.cli.common import make_predict_fn as jax_make
+    from yolo_nano_tpu.config import YoloNanoConfig as JaxConfig
+
     _, params, stats = small_tree
     cfg = YoloNanoConfig(num_classes=3, backbone="0.5x")
-    for kw in (dict(mesh=object()), dict(process_shard=(0, 2))):
-        with pytest.raises(NotImplementedError, match="not ported"):
+    jcfg = JaxConfig(num_classes=3, backbone="0.5x")
+    # the JAX package's refusals: local_rows without process_shard, and
+    # process_shard without a mesh
+    for kw, msg in ((dict(local_rows=True), "local_rows"),
+                    (dict(process_shard=(0, 2)), "needs a global mesh")):
+        with pytest.raises(ValueError, match=msg):
+            jax_make(params, stats, jcfg, 96, **kw)
+        with pytest.raises(ValueError, match=msg):
             make_predict_fn(params, stats, cfg, 96, device="cpu", **kw)
     with pytest.raises(ValueError, match="dtype"):
         make_predict_fn(params, stats, cfg, 96, dtype="float16",

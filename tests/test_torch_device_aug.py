@@ -32,6 +32,7 @@ import numpy as np
 import pytest
 import torch
 
+from tests.torch_ranks import Kinks
 from yolo_nano_tpu.data import device_aug as J
 from yolo_nano_tpu_torch.data import device_aug as T
 
@@ -368,27 +369,6 @@ STEP_SEEDS = range(15, 23)
 JAX_LOSS_RTOL = 2e-4
 
 
-class _Kinks:
-    """Stands in for an activation function and records, per call, its
-    input (pre-activation); given `masks` (one bool tensor per call, in call
-    order) it takes those as the kink decisions (x ≥ 0) instead of x's own
-    signs, with the same slopes."""
-
-    def __init__(self, act, slope, masks=None):
-        self.act, self.slope, self.masks, self.seen = act, slope, masks, []
-
-    def __call__(self, x, kind):
-        if kind is None:
-            return x
-        self.seen.append(x.detach().clone())
-        if self.masks is None:
-            return self.act(x, kind)
-        keep = self.masks[len(self.seen) - 1]
-        assert keep.shape == x.shape
-        return torch.where(keep, x, (0.0 if kind == "relu"
-                                     else self.slope(x.dtype)) * x)
-
-
 @pytest.fixture(scope="module")
 def augmented_steps():
     """Per seed of STEP_SEEDS: one JAX step with augment (jitted once), the
@@ -480,7 +460,7 @@ def augmented_steps():
             r = dict(jstate=jax_state_trees(jstate), jmetrics=jmetrics,
                      jax_aug=jaugs[0])
 
-            kinks = _Kinks(act, slope)
+            kinks = Kinks(act, slope)
             mp.setattr(tnn, "activate", kinks)
             r["state"], r["metrics"] = fn(
                 train_state_from_jax(**before, device="cpu"), *inputs,
@@ -495,7 +475,7 @@ def augmented_steps():
             seen = dict(port=r["aug"], jax=[torch.from_numpy(x.copy())
                                             for x in r["jax_aug"]])
             for side, m in masks.items():  # the f64 witnesses
-                w = _Kinks(act, slope, m)
+                w = Kinks(act, slope, m)
                 mp.setattr(tnn, "activate", w)
                 images, *rest = seen[side]
                 r[f"witness_{side}"] = plain(

@@ -254,9 +254,16 @@ def test_pull_item_matches_jax(kind, mosaic, synthetic_voc, synthetic_coco):
 def test_eval_loader_refuses_process_shard(synthetic_voc):
     from yolo_nano_tpu_torch.data.loader import EvalLoader
 
-    _, tds = _datasets("voc", synthetic_voc[0])
-    with pytest.raises(NotImplementedError, match="item 17"):
-        EvalLoader(tds, 96, 4, process_shard=(0, 2))
+    from yolo_nano_tpu.data.loader import EvalLoader as JaxEvalLoader
+
+    jds, tds = _datasets("voc", synthetic_voc[0])
+    # the JAX package's refusals: a place outside the processes, and a
+    # global eval batch that does not divide over them
+    for cls, ds in ((JaxEvalLoader, jds), (EvalLoader, tds)):
+        with pytest.raises(ValueError, match="bad process_shard"):
+            cls(ds, 96, 4, process_shard=(2, 2))
+        with pytest.raises(ValueError, match="divide evenly"):
+            cls(ds, 96, 5, process_shard=(0, 2))
 
 
 # ---------------------------------------------------------------------------

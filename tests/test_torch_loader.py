@@ -136,9 +136,18 @@ def test_device_mode_loader_matches_jax(voc_root, worker_mode):
 def test_loader_refusals_and_the_cache_warning(voc_root):
     from yolo_nano_tpu_torch.data.loader import DetectionLoader
 
-    _, ds = _datasets(voc_root)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        DetectionLoader(ds, 2, process_shard=(0, 2))
+    from yolo_nano_tpu.data.loader import DetectionLoader as JaxLoader
+
+    jds, ds = _datasets(voc_root)
+    # the JAX package's process_shard refusals: a place outside the
+    # processes, a global batch that does not divide, a ragged last batch
+    for (cls, d), (shard, kw, msg) in [
+            (pair, case) for pair in ((JaxLoader, jds), (DetectionLoader, ds))
+            for case in (((2, 2), {}, "bad process_shard"),
+                         ((0, 2), dict(batch_size=3), "divide evenly"),
+                         ((1, 2), dict(drop_last=False), "drop_last"))]:
+        with pytest.raises(ValueError, match=msg):
+            cls(d, **dict(dict(batch_size=2), **kw), process_shard=shard)
     with pytest.raises(ValueError, match="worker_mode"):
         DetectionLoader(ds, 2, worker_mode="fork")
     ds.enable_image_cache()
@@ -215,8 +224,19 @@ def test_device_prefetch_on_the_cpu(voc_root):
     tagged = list(device_prefetch(iter(host), size=1, device="cpu",
                                   put_fn=lambda b: ("put", len(b))))
     assert tagged == [("put", 3)] * len(host)
-    with pytest.raises(NotImplementedError, match="item 17"):
-        device_prefetch(iter(host), sharding=object(), device="cpu")
+    # sharding: this process's rows of each global batch, on its device; a
+    # batch that does not divide over the processes raises, as the JAX
+    # package's shard_batch refuses it
+    from yolo_nano_tpu_torch.parallel.mesh import BatchSharding
+
+    second = BatchSharding(1, 2, torch.device("cpu"))
+    rows = list(device_prefetch(iter(host), sharding=second))
+    for g, w in zip(rows, host):
+        for t, a in zip(g, w):
+            np.testing.assert_array_equal(t.numpy(), a[1:2])
+    with pytest.raises(ValueError, match="must divide"):
+        list(device_prefetch(iter([tuple(a[:1] for a in host[0])]),
+                             sharding=second))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             device_prefetch(iter(host))

@@ -405,8 +405,13 @@ def test_flags_that_raise_and_bf16(voc, tmp_path, monkeypatch):
             got = flatten_tree(train_state_to_jax(resumed["state"])[field])
             for k, v in flatten_tree(tree).items():
                 np.testing.assert_array_equal(got[k], v, err_msg=k)
-    with pytest.raises(NotImplementedError, match="item 17"):
+    # the JAX CLI's refusals: --coordinator without --num_processes, and a
+    # global batch that does not divide over the processes
+    with pytest.raises(SystemExit, match="--num_processes"):
         _train(_args(voc, tmp_path, "--coordinator", "localhost:1234"))
+    with pytest.raises(SystemExit, match="divisible"):
+        _train(_args(voc, tmp_path, "--coordinator", "localhost:1234",
+                     "--num_processes", "4", "--process_id", "0"))
     with pytest.raises(SystemExit):
         _train(_args(voc, tmp_path, "-ms", "--multi_scale_range", "5", "5"))
     if not torch.cuda.is_available():  # CUDA unless --device says otherwise

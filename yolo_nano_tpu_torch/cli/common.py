@@ -1,7 +1,6 @@
 """Shared CLI plumbing: `build_config`, the per-dataset model config,
 `make_predict_fn`, which makes a batched predict function, the class names
-and box drawing (the JAX package's `cli/common.py`; of `make_predict_fn`
-its single-device branch)."""
+and box drawing (the JAX package's `cli/common.py`)."""
 
 from __future__ import annotations
 
@@ -90,7 +89,8 @@ def card_line(dev) -> str:
 
 def make_predict_fn(params, stats, cfg: YoloNanoConfig, input_size: int,
                     fold: bool = True, dtype: str = "bfloat16",
-                    mesh=None, process_shard=None, device=None) -> Callable:
+                    mesh=None, process_shard=None, local_rows: bool = False,
+                    device=None) -> Callable:
     """Batched inference closure: images [B,S,S,3] float32 → numpy
     (boxes, scores, classes int32, valid bool).
 
@@ -99,24 +99,41 @@ def make_predict_fn(params, stats, cfg: YoloNanoConfig, input_size: int,
     be None for a folded tree. With `fold`, every conv+BN unit is folded
     at build time; with dtype "bfloat16", every f32 parameter is cast to
     bf16 (`cast_f32_to_bf16`) and the images are cast on the device. The
-    weights go to the device (CUDA unless `device` names another) once,
-    here. `mesh` and `process_shard` belong to the multi-device branches,
-    which the port does not have yet: either raises."""
+    weights go to the device (CUDA unless `device` names another; with a
+    mesh, this process's device in it) once, here.
+
+    With `mesh` (parallel.mesh) inference spreads over the process group:
+    each process runs its rows of the batch (which must divide by the mesh
+    size) through its copy of the model, and the fixed-shape detections of
+    all rows are gathered, the same on every process
+    (`serving.shard_predictor`). The closure takes the whole global batch;
+    `process_shard` = (process index, count), this process's place in the
+    mesh, with `local_rows=True` makes it take only this process's rows
+    [B/count, S, S, 3], as EvalLoader(process_shard=…) decodes them."""
     from yolo_nano_tpu_torch.convert import build_yolo_nano
-    from yolo_nano_tpu_torch.serving import DTYPES, predictor, resolve_device
+    from yolo_nano_tpu_torch.serving import (
+        DTYPES, predictor, resolve_device, shard_predictor)
     from yolo_nano_tpu_torch.utils.fuse_bn import cast_f32_to_bf16, fold_bn
 
-    if mesh is not None or process_shard is not None:
-        raise NotImplementedError("make_predict_fn: mesh and process_shard "
-                                  "need the port's data parallelism, which "
-                                  "is not ported yet")
+    if local_rows and process_shard is None:
+        raise ValueError("local_rows=True only makes sense with "
+                         "process_shard (multi-process mode)")
+    if mesh is None and process_shard is not None:
+        raise ValueError("process_shard needs a global mesh")
     if dtype not in DTYPES:
         raise ValueError(f"dtype must be one of {sorted(DTYPES)}, got "
                          f"{dtype!r}")
+    if mesh is not None:
+        from yolo_nano_tpu_torch.parallel.mesh import mesh_device
+
+        device = mesh_device(mesh)
     dev = resolve_device(device)
     model = build_yolo_nano(params, stats, cfg)
     if fold:
         model = fold_bn(model)
     if dtype == "bfloat16":
         model = cast_f32_to_bf16(model)
-    return predictor(model.to(dev), cfg, input_size, dev, dtype)
+    fn = predictor(model.to(dev), cfg, input_size, dev, dtype)
+    if mesh is None:
+        return fn
+    return shard_predictor(fn, mesh, process_shard, local_rows)

@@ -30,9 +30,20 @@ the card both bf16 kernels) must leave it as it found it, and the CLI
 raises if it does not.
 
 At the start it prints the FLOPs and parameter report of the model at
---img_size (`utils.flops.flops_and_params`, counted on the CPU). Not
-ported: --coordinator (multi-process training, ROADMAP Queue 1 item 17)
-raises.
+--img_size (`utils.flops.flops_and_params`, counted on the CPU).
+
+Data parallelism over N processes, one device each (`parallel/`): start
+the same command N times with --coordinator HOST:PORT (process 0's
+address), --num_processes N and --process_id 0..N-1 (or the environment
+variables YNT_COORDINATOR, YNT_NUM_PROCESSES, YNT_PROCESS_ID). The
+processes join a process group (NCCL on CUDA, each process on device
+id % cards; gloo with --device cpu). --batch_size stays the global batch
+and must divide by N; each process loads its rows of every batch, the
+state is replicated from rank 0, the step runs sync-BN and one gradient
+all-reduce, the augment draws for the global batch, and the eval hook runs
+each process's rows of every eval batch through the kernels and gathers
+the detections. N processes train as one process on the same global
+batch does. Only rank 0 prints, logs and writes checkpoints.
 --pretrained reads a backbone `.npz` written by
 `yolo_nano_tpu_torch.tools.convert_shufflenetv2`.
 """
@@ -107,16 +118,20 @@ def parse_args(argv=None):
     p.add_argument("--profile_steps", default=0, type=int,
                    help="capture a torch.profiler trace of N steps from "
                         "iteration 2 (written to <save>/profile)")
-    # the JAX package's multi-controller launch surface; the port has no
-    # multi-process training yet, so setting it raises
+    # multi-process launch surface; the env fallbacks let a cluster
+    # launcher inject the topology without editing command lines
     p.add_argument("--coordinator", default=os.environ.get("YNT_COORDINATOR"),
-                   help="multi-process training (ROADMAP Queue 1 item 17): "
-                        "not ported yet, raises")
+                   help="host:port of process 0's process-group store — "
+                        "setting this enables multi-process training; "
+                        "batch_size stays the GLOBAL batch")
     p.add_argument("--num_processes", type=int,
                    default=int(os.environ.get("YNT_NUM_PROCESSES", 0)) or None)
     p.add_argument("--process_id", type=int,
                    default=(int(os.environ["YNT_PROCESS_ID"])
                             if "YNT_PROCESS_ID" in os.environ else None))
+    p.add_argument("--dist_timeout", type=float, default=300,
+                   help="seconds a collective waits for the other "
+                        "processes before the run fails")
     p.add_argument("--device", default=None,
                    help="torch device to train on (default: CUDA, which "
                         "must be present); 'cpu' runs the plain versions of "
@@ -158,7 +173,8 @@ def main(argv=None):
     `images` trained on, `loop_s` (the epoch loops' wall seconds, the card
     waited for at each epoch's end, eval hooks excluded), `loader_wait_s`
     (of those, the seconds spent waiting for the next batch) and `eval_s`
-    (each eval hook's seconds)."""
+    (each eval hook's seconds). With --coordinator, `images` counts the
+    global batches' images."""
     args = parse_args(argv)
     if args.multi_scale:
         lo, hi = args.multi_scale_range
@@ -168,10 +184,41 @@ def main(argv=None):
             raise SystemExit(
                 f"--multi_scale_range needs 0 < LO < HI (exclusive), got "
                 f"{lo} {hi}; e.g. '10 20' draws sizes 320..608")
-    if args.coordinator:
-        raise NotImplementedError(
-            "--coordinator: multi-process training needs the port's data "
-            "parallelism (ROADMAP Queue 1 item 17), which is not ported yet")
+    if not args.coordinator:
+        return train(args)
+    if args.num_processes is None or args.process_id is None:
+        raise SystemExit("--coordinator needs --num_processes and "
+                         "--process_id (or the YNT_* env vars)")
+    if args.batch_size % args.num_processes:
+        raise SystemExit(
+            f"multi-process training needs the global batch_size "
+            f"({args.batch_size}) divisible by the number of processes "
+            f"({args.num_processes})")
+    import contextlib
+
+    from yolo_nano_tpu_torch.parallel.mesh import make_mesh
+    from yolo_nano_tpu_torch.parallel.multiprocess import (initialize,
+                                                           shutdown_tolerant)
+
+    initialize(args.coordinator, args.num_processes, args.process_id,
+               device=args.device, timeout_s=args.dist_timeout)
+    try:
+        mesh = make_mesh()
+        if args.process_id == 0:
+            return train(args, mesh)
+        # one log stream: the other ranks run the same program and would
+        # print the same lines
+        with open(os.devnull, "w") as null, \
+                contextlib.redirect_stdout(null):
+            return train(args, mesh)
+    finally:
+        # the run's work is saved; a teardown race must not fail it
+        shutdown_tolerant()
+
+
+def train(args, mesh=None):
+    """main's body: the run of the parsed `args`, on one process, or with
+    `mesh` (parallel.mesh) on this process's rows of each global batch."""
     import torch
 
     from yolo_nano_tpu_torch.cli.common import build_config, make_predict_fn
@@ -194,7 +241,20 @@ def main(argv=None):
     from yolo_nano_tpu_torch.utils.checkpoint import CheckpointManager
     from yolo_nano_tpu_torch.utils.flops import flops_and_params
 
-    dev = resolve_device(args.device)
+    if mesh is None:
+        dev, pid, pcount = resolve_device(args.device), 0, 1
+    else:
+        from yolo_nano_tpu_torch.parallel.mesh import (batch_sharding,
+                                                       replicated)
+
+        shard = batch_sharding(mesh)
+        dev, pid, pcount = shard.device, shard.index, shard.count
+    is_main = pid == 0
+    process_shard = None if mesh is None else (pid, pcount)
+    # under a mesh each process runs its rows of every eval batch through
+    # the kernels, and the detections are gathered on every process
+    sharded_eval = {} if mesh is None else dict(
+        mesh=mesh, process_shard=process_shard, local_rows=True)
     # training precision, set once: full f32 (TF32 off); the eval hook's
     # predict sets the same flags, and is checked to leave them so
     set_full_f32()
@@ -213,13 +273,15 @@ def main(argv=None):
                              image_sets=sets, mosaic=args.mosaic)
         evaluator = VOCEvaluator(args.root, args.eval_size,
                                  batch_size=args.batch_size,
-                                 num_workers=args.num_workers)
+                                 num_workers=args.num_workers,
+                                 process_shard=process_shard)
     else:
         dataset = COCODataset(args.root, image_set="train2017",
                               img_size=args.img_size, mosaic=args.mosaic)
         evaluator = COCOEvaluator(args.root, args.eval_size,
                                   batch_size=args.batch_size,
-                                  num_workers=args.num_workers)
+                                  num_workers=args.num_workers,
+                                  process_shard=process_shard)
 
     # mosaic merges 4 images' ground truth — scale the padding budget so
     # crowded mosaics don't silently truncate boxes
@@ -230,7 +292,8 @@ def main(argv=None):
         dataset.enable_image_cache()
     loader = DetectionLoader(dataset, args.batch_size, max_boxes=max_boxes,
                              num_workers=args.num_workers, seed=args.seed,
-                             worker_mode=args.worker_mode)
+                             worker_mode=args.worker_mode,
+                             process_shard=process_shard)
     epoch_size = len(loader)
 
     model = init_yolo_nano(torch.Generator().manual_seed(args.seed), cfg,
@@ -239,9 +302,10 @@ def main(argv=None):
         # ImageNet-pretrained trunk (reference backbone/shufflenetv2.py:177-180)
         load_pretrained(model, args.pretrained, cfg.backbone)
         print(f"loaded pretrained backbone from {args.pretrained}")
-    flops_and_params(tree_from_named(dict(model.named_parameters())),
-                     tree_from_named(dict(model.named_buffers())), cfg,
-                     args.img_size)
+    if is_main:
+        flops_and_params(tree_from_named(dict(model.named_parameters())),
+                         tree_from_named(dict(model.named_buffers())), cfg,
+                         args.img_size)
 
     schedule = warmup_step_schedule(args.lr, epoch_size,
                                     wp_epochs=args.wp_epoch,
@@ -264,6 +328,11 @@ def main(argv=None):
             # from the restored step unless --start_epoch overrides
             start_epoch = max(start_epoch, int(state.step) // epoch_size)
             print(f"resumed @ step {int(state.step)} (epoch {start_epoch})")
+    if mesh is not None:
+        # every rank made or restored the same state; rank 0's, bit for
+        # bit, on every rank
+        state = replicated(mesh)(state)
+        print(f"data-parallel over {pcount} processes")
 
     steps = {}  # train_size → step (multi-scale buckets)
 
@@ -274,13 +343,13 @@ def main(argv=None):
                 # the mosaic composes in the step from the batch's canvases
                 augment = make_augment_fn(
                     size, out_dtype=torch.bfloat16 if args.bf16
-                    else torch.float32, mosaic=args.mosaic)
+                    else torch.float32, mosaic=args.mosaic, mesh=mesh)
             steps[size] = make_train_step(cfg, tx, size, device=dev,
-                                          augment=augment)
+                                          augment=augment, mesh=mesh)
         return steps[size]
 
     tb_writer = None
-    if args.tfboard:
+    if args.tfboard and is_main:
         try:
             from torch.utils.tensorboard import SummaryWriter
         except ImportError as e:
@@ -300,7 +369,8 @@ def main(argv=None):
         lo, hi = args.multi_scale_range
         for _ in range(start_epoch * max(0, (epoch_size - 1) // 10)):
             train_size = int(rng.integers(lo, hi)) * 32
-    log_f = open(log_path, "a")
+    # the metrics log: rank 0 writes it (every rank holds the same values)
+    log_f = open(log_path if is_main else os.devnull, "a")
     profiler, profiled = None, False
 
     # data-order continuity: position the loader at start_epoch so a resumed
@@ -314,14 +384,15 @@ def main(argv=None):
     for epoch in range(start_epoch, args.max_epoch):
         t_epoch = time.perf_counter()
         # pinned staging and a copy stream: host augmentation and the copy
-        # of the next batches overlap the card's work on this one
+        # of the next batches overlap the card's work on this one (with a
+        # process_shard the loader yields this process's rows)
         batches = device_prefetch(loader, size=2, device=dev)
         for iter_i, (images, boxes, labels, *regions) in enumerate(
                 timed(batches, wait)):
             if args.bf16 and not args.device_augment:
                 # (the augment emits the compute dtype from uint8 canvases)
                 images = images.to(torch.bfloat16)
-            if args.profile_steps and not profiled and \
+            if args.profile_steps and is_main and not profiled and \
                     epoch == start_epoch and iter_i == 2:  # skip warm-up
                 profiled = True
                 profiler = torch.profiler.profile(activities=[
@@ -353,7 +424,7 @@ def main(argv=None):
                                                 regions[0], aug_gen)
             else:
                 state, metrics = get_step(size)(state, images, boxes, labels)
-            images_seen += images.shape[0]
+            images_seen += images.shape[0] * pcount
             if iter_i % 10 == 0:
                 m = {k: float(v) for k, v in metrics.items()}
                 lr = float(schedule(state.step))
@@ -387,7 +458,8 @@ def main(argv=None):
             eval_stats = state.ema_stats if args.ema else state.stats
             predict_fn = make_predict_fn(tree_from_named(eval_params),
                                          tree_from_named(eval_stats), cfg,
-                                         args.eval_size, device=dev)
+                                         args.eval_size, device=dev,
+                                         **sharded_eval)
             evaluator.evaluate(predict_fn)
             if precision_flags() != flags:
                 raise RuntimeError(

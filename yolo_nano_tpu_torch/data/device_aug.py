@@ -318,8 +318,11 @@ def crop_letterbox_boxes(boxes: torch.Tensor, labels: torch.Tensor,
 
 def compose_mosaic(d: dict, images_u8: torch.Tensor, boxes: torch.Tensor,
                    labels: torch.Tensor, regions: torch.Tensor,
-                   out_size: int, pad_bgr: torch.Tensor):
-    """The mosaic of every item of the batch, on the device.
+                   out_size: int, pad_bgr: torch.Tensor, first_row: int = 0):
+    """The mosaic of every item of the draws `d`, on the device: items
+    first_row, first_row + 1, ... of the batch given (under data
+    parallelism the global batch, gathered, and this process's rows of it;
+    else the whole batch).
 
     The host chain builds a 2S×2S canvas from 4 native images scaled by
     S/max(h,w) and resizes it to S. Here item i's tiles are i and the rows
@@ -336,17 +339,18 @@ def compose_mosaic(d: dict, images_u8: torch.Tensor, boxes: torch.Tensor,
     ground truth of the 4 tiles clipped to the canvas, valid rows first
     (stable) in the item's M slots."""
     batch, m = labels.shape
+    items = d["mos_cx"].shape[0]
     base_size = images_u8.shape[1]
     dev = images_u8.device
-    idx = torch.arange(batch, device=dev)
+    idx = torch.arange(first_row, first_row + items, device=dev)
     tiles = torch.cat([idx[:, None],
                        (idx[:, None] + 1 + d["mos_tiles"]) % batch], 1)
     # mosaic centre: U(S/2, 3S/2) on the 2S canvas → U(0.25, 0.75)
     cx = 0.25 + 0.5 * d["mos_cx"]
     cy = 0.25 + 0.5 * d["mos_cy"]
-    s = torch.full((batch, 2), out_size / (2.0 * base_size),
+    s = torch.full((items, 2), out_size / (2.0 * base_size),
                    dtype=torch.float32, device=dev)  # half the region scale
-    img_out = pad_bgr.expand(batch, out_size, out_size, 3)
+    img_out = pad_bgr.expand(items, out_size, out_size, 3)
     xs = torch.arange(out_size, dtype=torch.float32, device=dev) + 0.5
     out_boxes, out_labels = [], []
     for t in range(4):
@@ -433,7 +437,7 @@ def sample_draws(gen: torch.Generator, batch: int, rounds: int = 16,
 def apply_augment(images_u8: torch.Tensor, boxes: torch.Tensor,
                   labels: torch.Tensor, regions: torch.Tensor, draws: dict,
                   out_size: int, out_dtype=torch.float32,
-                  mosaic: bool = False):
+                  mosaic: bool = False, mosaic_source=None):
     """The batched pipeline, every random choice given in `draws`.
 
     images_u8 [B,S0,S0,3] uint8 BGR base canvases; boxes [B,M,4]
@@ -445,7 +449,10 @@ def apply_augment(images_u8: torch.Tensor, boxes: torch.Tensor,
     With mosaic (draws from sample_draws(..., mosaic=True)) an item whose
     mos_coin is set is instead the 4-tile mosaic (compose_mosaic) through
     the crop-free colour chain (photometric, mirror, normalize). Both
-    branches are computed for every item and chosen with torch.where."""
+    branches are computed for every item and chosen with torch.where.
+    `mosaic_source` = (images_u8, boxes, labels, regions, first_row): the
+    batch the mosaic tiles come from, whose rows first_row, ... are the
+    items given (compose_mosaic); by default the items' own batch."""
     if regions.dim() != 2 or regions.shape[-1] != 5:
         raise ValueError(
             f"regions must be [B,5] (rect + crop_allowed flag, the loader's "
@@ -464,8 +471,9 @@ def apply_augment(images_u8: torch.Tensor, boxes: torch.Tensor,
     out = crop_letterbox_image(img, rect, out_size, pad_bgr)
     nb, nl = crop_letterbox_boxes(boxes, labels, rect, identity)
     if mosaic:
-        m_img, m_bx, m_lb = compose_mosaic(draws, images_u8, boxes, labels,
-                                           regions, out_size, pad_bgr)
+        source = mosaic_source or (images_u8, boxes, labels, regions, 0)
+        m_img, m_bx, m_lb = compose_mosaic(draws, *source[:4], out_size,
+                                           pad_bgr, source[4])
         # one photometric draw on the composed image, as the host chain's
         # single colour pass over its 2S canvas
         m_img = photometric_distort(m_img, draws)
@@ -485,17 +493,46 @@ def apply_augment(images_u8: torch.Tensor, boxes: torch.Tensor,
 
 
 def make_augment_fn(out_size: int, rounds: int = 16, trials: int = 32,
-                    out_dtype=torch.float32, mosaic: bool = False):
+                    out_dtype=torch.float32, mosaic: bool = False,
+                    mesh=None):
     """→ augment(images_u8, boxes, labels, regions, gen) for the training
     step (train.train_step.make_train_step(augment=...)): sample_draws on
     `gen`, then apply_augment at out_size. With mosaic the 4-tile mosaic is
     composed in the step too, so the host always ships plain per-index
-    canvases and the canvas cache stays fully effective."""
+    canvases and the canvas cache stays fully effective.
+
+    With `mesh` (parallel.mesh) the arguments are this process's rows of
+    the global batch, and every process seeds `gen` alike: the draws are
+    made for the global batch and each process keeps its rows', so that
+    its rows come out as one process's run of the global batch gives them,
+    bit for bit. With mosaic the canvases, boxes, labels and regions of
+    the global batch are gathered first (all_gather_rows), since an item's
+    tiles are rows of the global batch, as in the JAX package's sharded
+    step."""
+    if mesh is not None:
+        from yolo_nano_tpu_torch.parallel.mesh import (batch_sharding,
+                                                       mesh_group)
+        from yolo_nano_tpu_torch.parallel.multiprocess import all_gather_rows
+
+        shard, group = batch_sharding(mesh), mesh_group(mesh)
 
     def augment(images_u8, boxes, labels, regions, gen):
-        draws = sample_draws(gen, images_u8.shape[0], rounds, trials,
+        if mesh is None:
+            draws = sample_draws(gen, images_u8.shape[0], rounds, trials,
+                                 mosaic=mosaic)
+            return apply_augment(images_u8, boxes, labels, regions, draws,
+                                 out_size, out_dtype, mosaic=mosaic)
+        local = images_u8.shape[0]
+        rows = shard.rows(local * shard.count)
+        draws = sample_draws(gen, local * shard.count, rounds, trials,
                              mosaic=mosaic)
-        return apply_augment(images_u8, boxes, labels, regions, draws,
-                             out_size, out_dtype, mosaic=mosaic)
+        source = None
+        if mosaic:
+            source = tuple(all_gather_rows(t, group) for t in (
+                images_u8, boxes, labels, regions)) + (rows.start,)
+        return apply_augment(images_u8, boxes, labels, regions,
+                             {k: v[rows] for k, v in draws.items()},
+                             out_size, out_dtype, mosaic=mosaic,
+                             mosaic_source=source)
 
     return augment

@@ -17,9 +17,11 @@
     so evaluation runs batched (the reference evaluators loop single
     images, evaluator/cocoapi_evaluator.py:65-87).
 
-The multi-process shard of both loaders (`process_shard`) and `sharding`
-of `device_prefetch` need the port's data parallelism (ROADMAP Queue 1
-item 17): they raise.
+Under data parallelism (`parallel/`) both loaders take `process_shard`
+= (process index, process count): a process loads only its rows of every
+global batch, keyed on the global positions, so that the processes' rows
+together are one process's batches; `device_prefetch(sharding=)` places
+this process's rows of each global batch on its device.
 """
 
 from __future__ import annotations
@@ -34,16 +36,19 @@ from typing import Iterator, List, Tuple
 import numpy as np
 import torch
 
-from yolo_nano_tpu_torch.data.transforms import val_transform
+from yolo_nano_tpu_torch.data.transforms import (letterbox_geometry,
+                                                 val_transform)
 
 MAX_BOXES_DEFAULT = 64
 
 
-def _no_process_shard(what: str, process_shard) -> None:
-    if process_shard is not None:
-        raise NotImplementedError(
-            f"{what}: process_shard needs the port's data parallelism "
-            "(ROADMAP Queue 1 item 17), which is not ported yet")
+def _check_shard(process_shard, batch_size: int, what: str) -> None:
+    pid, count = process_shard
+    if not 0 <= pid < count:
+        raise ValueError(f"bad process_shard {process_shard!r}")
+    if batch_size % count:
+        raise ValueError(f"global {what} {batch_size} must divide evenly "
+                         f"over {count} processes")
 
 
 # --- process-pool worker side (top-level: must pickle under spawn) ---------
@@ -102,8 +107,19 @@ class DetectionLoader:
         images, and on many-core hosts). Both modes draw identical per-item
         RNG streams, so the augmented sample sequence is byte-identical.
 
-        process_shard (the JAX package's multi-controller rows) raises."""
-        _no_process_shard("DetectionLoader", process_shard)
+        process_shard: (process index, process count) under data
+        parallelism: this process loads ONLY rows [pid·B/n, (pid+1)·B/n) of
+        every global batch (`batch_size` stays the GLOBAL batch). Shuffle
+        order and per-item RNG are keyed on global positions, so the union
+        of all processes' rows is byte-identical to one process's batches.
+        It needs drop_last (a ragged batch cannot split evenly)."""
+        if process_shard is not None:
+            _check_shard(process_shard, batch_size, "batch_size")
+            if not drop_last:
+                raise ValueError(
+                    "process_shard requires drop_last=True (a ragged final "
+                    "batch cannot split evenly across processes)")
+        self.process_shard = process_shard
         self.dataset = dataset
         self.batch_size = batch_size
         self.max_boxes = max_boxes
@@ -233,6 +249,12 @@ class DetectionLoader:
                             return
                         lo = bi * self.batch_size
                         hi = min(lo + self.batch_size, len(order))
+                        if self.process_shard is not None:
+                            # this process's rows; seed_key stays keyed on
+                            # the GLOBAL position
+                            pid, count = self.process_shard
+                            per = (hi - lo) // count
+                            lo, hi = lo + pid * per, lo + (pid + 1) * per
                         items = map_batch(pool, lo, hi)
                         images = np.stack([it[0] for it in items])
                         boxes, labels = pad_targets([it[1] for it in items],
@@ -286,15 +308,20 @@ def device_prefetch(iterator, size: int = 2, sharding=None, put_fn=None,
     tensors there, with no copy stream.
 
     `put_fn(batch_tuple) → tuple` overrides placement entirely. `sharding`
-    (batch-sharded placement over a mesh) needs the port's data
-    parallelism (ROADMAP Queue 1 item 17): it raises. The arguments are
-    checked at the call; the batches come from the returned generator."""
-    if sharding is not None:
-        raise NotImplementedError(
-            "device_prefetch: sharding needs the port's data parallelism "
-            "(ROADMAP Queue 1 item 17), which is not ported yet")
+    (parallel.mesh.batch_sharding) takes each batch as a GLOBAL batch and
+    places this process's rows of it on the process's device, the same
+    way; a loader with `process_shard` yields those rows already, and goes
+    to the device as it is. The arguments are checked at the call; the
+    batches come from the returned generator."""
     from yolo_nano_tpu_torch.serving import resolve_device
 
+    if sharding is not None:
+        if device is not None and torch.device(device) != sharding.device:
+            raise ValueError(f"device {device} is not the sharding's "
+                             f"{sharding.device}")
+        device = sharding.device
+        iterator = (tuple(np.asarray(a)[sharding.rows(len(a))]
+                          for a in batch) for batch in iterator)
     dev = resolve_device(device)
     copy_stream = None
     if put_fn is not None:
@@ -349,12 +376,23 @@ class EvalLoader:
     The last batch is padded by repeating the final image (fixed shapes);
     `metas` has one entry per REAL image only.
 
-    `process_shard` (the JAX package's multi-controller mode) raises."""
+    process_shard=(process index, process count) under data parallelism:
+    `batch_size` stays the GLOBAL batch; this process decodes and
+    letterboxes ONLY rows [pid·B/n, (pid+1)·B/n) of every global batch (the
+    final ragged batch padded by repeating its last index first), while
+    `metas` still covers ALL real rows: their letterbox-undo geometry comes
+    from the annotations' image sizes (dataset.image_hw →
+    transforms.letterbox_geometry), no decode. Feed the rows to a
+    make_predict_fn(..., process_shard=…, local_rows=True) closure: its
+    gathered detections and the full metas make every process's
+    evaluation one process's evaluation."""
 
     def __init__(self, dataset, img_size: int, batch_size: int,
                  num_workers: int = 4,
                  process_shard: "Tuple[int, int] | None" = None):
-        _no_process_shard("EvalLoader", process_shard)
+        if process_shard is not None:
+            _check_shard(process_shard, batch_size, "eval batch")
+        self.process_shard = process_shard
         self.dataset = dataset
         self.img_size = img_size
         self.batch_size = batch_size
@@ -371,12 +409,34 @@ class EvalLoader:
             return img, {"scale": scale, "offset": offset, "w": w, "h": h,
                          "id": img_id, "index": i}
 
+        def meta_only(i: int):
+            # the geometry load_one computes, from the annotation's size
+            h, w = self.dataset.image_hw(i)
+            scale, offset = letterbox_geometry(h, w, self.img_size)
+            return {"scale": scale, "offset": offset, "w": w, "h": h,
+                    "id": self.dataset.ids[i], "index": i}
+
         n = len(self.dataset)
+        shard = self.process_shard
         with cf.ThreadPoolExecutor(self.num_workers) as pool:
             for lo in range(0, n, self.batch_size):
                 hi = min(lo + self.batch_size, n)
-                items = list(pool.map(load_one, range(lo, hi)))
-                images = [it[0] for it in items]
-                while len(images) < self.batch_size:  # pad final batch
-                    images.append(images[-1])
-                yield np.stack(images), [it[1] for it in items]
+                if shard is None:
+                    items = list(pool.map(load_one, range(lo, hi)))
+                    images = [it[0] for it in items]
+                    while len(images) < self.batch_size:  # pad final batch
+                        images.append(images[-1])
+                    yield np.stack(images), [it[1] for it in items]
+                    continue
+                pid, count = shard
+                per = self.batch_size // count
+                # the final ragged batch padded by its last index, so that
+                # it still splits evenly over the processes
+                idxs = list(range(lo, hi))
+                idxs += [hi - 1] * (self.batch_size - len(idxs))
+                img_futs = [pool.submit(load_one, i)
+                            for i in idxs[pid * per:(pid + 1) * per]]
+                meta_futs = [pool.submit(meta_only, i)
+                             for i in range(lo, hi)]
+                yield (np.stack([f.result()[0] for f in img_futs]),
+                       [f.result() for f in meta_futs])

@@ -61,7 +61,14 @@ def _run_batched(dataset, img_size: int, batch_size: int,
     Batch i+1's predict_fn is called before batch i's detections are
     unpacked, as in the JAX package, where that call only dispatches. The
     port's predictors return numpy, so there the call finishes on the card
-    before the host goes on. `process_shard` raises (EvalLoader)."""
+    before the host goes on.
+
+    process_shard=(pid, count) under data parallelism: the loader decodes
+    only this process's rows of each global batch (EvalLoader); predict_fn
+    must be a make_predict_fn(..., process_shard=…, local_rows=True)
+    closure, whose gathered detections cover the whole global batch, so
+    the per-image stream below is the same on every process, and the same
+    as one process's."""
     loader = EvalLoader(dataset, img_size, batch_size, num_workers,
                         process_shard=process_shard)
     done = 0

@@ -6,7 +6,10 @@ Points that keep the port equal to the JAX package:
   * BatchNorm with eps 1e-5, written as (y - mean)·γ/√(σ²+ε) + β: in eval
     mode with the running stats; in train mode with the batch mean and the
     two-pass biased variance over (N, H, W) in f32, while the running var
-    takes the unbiased estimate var·n/(n−1), momentum 0.1;
+    takes the unbiased estimate var·n/(n−1), momentum 0.1; inside
+    `sync_batch_norm(group)` the mean and variance are the whole process
+    group's (sync-BN), as the JAX package's are over a batch sharded over
+    its mesh;
   * LeakyReLU with slope 0.1;
   * 3×3/s2 max-pool with a −inf pad;
   * channel_shuffle mapping out[j·g + i] = in[i·C/g + j];
@@ -26,12 +29,15 @@ builds modules from such a tree.
 
 from __future__ import annotations
 
+import contextlib
+import contextvars
 import functools
 import math
 from typing import Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
@@ -89,19 +95,73 @@ def activate(x: torch.Tensor, act: Optional[str]) -> torch.Tensor:
     raise ValueError(f"unknown activation {act!r}")
 
 
+# the process group whose batch train-mode BN normalises over (sync-BN)
+_BN_GROUP: contextvars.ContextVar = contextvars.ContextVar("bn_group",
+                                                           default=None)
+
+
+@contextlib.contextmanager
+def sync_batch_norm(group):
+    """Train-mode BN inside this context takes its batch statistics over
+    every process of `group` (None: this process's batch alone). The
+    training step enters it around the forward; the model needs no
+    attribute for it."""
+    token = _BN_GROUP.set(group)
+    try:
+        yield
+    finally:
+        _BN_GROUP.reset(token)
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over the group's processes; its backward sums the incoming
+    gradients over them too, since each process's loss reaches every
+    process's input through the sum."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = x.contiguous().clone()
+        dist.all_reduce(out, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        out = grad.contiguous().clone()
+        dist.all_reduce(out, group=ctx.group)
+        return out, None
+
+
 def batch_norm_train(y: torch.Tensor, scale, bias, mean, var):
     """Train-mode BN of y [B,C,H,W] → (out, new running mean, new running
-    var); the running stats are not written."""
+    var); the running stats are not written. Inside `sync_batch_norm` the
+    statistics are the group's: the per-channel means are all-reduced for
+    the mean, then the means of centred squares for the variance (two
+    passes, as here), and n is the group's count."""
+    group = _BN_GROUP.get()
     yf = y.to(torch.promote_types(y.dtype, torch.float32))
-    batch_mean = yf.mean((0, 2, 3))
-    # two-pass variance: E[x²]−E[x]² cancels catastrophically in f32
-    centred = yf - batch_mean[:, None, None]
-    batch_var = centred.square().mean((0, 2, 3))
     n = y.shape[0] * y.shape[2] * y.shape[3]
+    if group is None:
+        batch_mean = yf.mean((0, 2, 3))
+        # two-pass variance: E[x²]−E[x]² cancels catastrophically in f32
+        centred = yf - batch_mean[:, None, None]
+        batch_var = centred.square().mean((0, 2, 3))
+    else:
+        # every process holds an equal shard of the batch (the loaders and
+        # `batch_sharding` see to it), so the group's count is n·size and
+        # its means are the means of the processes' means; a group of one
+        # gives the bits of the branch above
+        size = dist.get_world_size(group)
+        n *= size
+        batch_mean = _AllReduceSum.apply(yf.mean((0, 2, 3)), group) / size
+        centred = yf - batch_mean[:, None, None]
+        batch_var = _AllReduceSum.apply(centred.square().mean((0, 2, 3)),
+                                        group) / size
+    unbiased = n / max(n - 1, 1)
     with torch.no_grad():
         new_mean = (1 - BN_MOMENTUM) * mean + BN_MOMENTUM * batch_mean
         new_var = ((1 - BN_MOMENTUM) * var
-                   + BN_MOMENTUM * (batch_var * (n / max(n - 1, 1))))
+                   + BN_MOMENTUM * (batch_var * unbiased))
     inv = torch.rsqrt(batch_var + BN_EPS) * scale
     out = centred * inv[:, None, None] + bias[:, None, None]
     return out.to(y.dtype), new_mean, new_var

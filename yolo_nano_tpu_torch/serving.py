@@ -91,6 +91,50 @@ def predictor(model, cfg, input_size: int, dev: torch.device,
     return predict_fn
 
 
+def shard_predictor(predict_fn: Callable, mesh, process_shard=None,
+                    local_rows: bool = False) -> Callable:
+    """A predictor of `serving` (tensors on its device in, detections
+    there out) spread over the mesh's processes: each process runs its
+    rows of the batch, and the fixed-shape [b, max_det] detections of all
+    processes are gathered (`all_gather_rows`) into the batch's [B, max_det]
+    ones, the same on every process. The closure takes the whole batch and
+    keeps this process's rows, or with `local_rows` only those rows. Numpy
+    images give numpy detections, a tensor on the device gives tensors
+    there. `process_shard`, if given, must be this process's place in the
+    mesh."""
+    from yolo_nano_tpu_torch.parallel.mesh import batch_sharding, mesh_group
+    from yolo_nano_tpu_torch.parallel.multiprocess import all_gather_rows
+
+    shard, group = batch_sharding(mesh), mesh_group(mesh)
+    if process_shard is not None and tuple(process_shard) != (
+            shard.index, shard.count):
+        raise ValueError(f"process_shard {tuple(process_shard)} is not this "
+                         f"process's place in the mesh, "
+                         f"({shard.index}, {shard.count})")
+
+    def run(rows):
+        on_device = isinstance(rows, torch.Tensor)
+        if not on_device:
+            rows = torch.from_numpy(np.ascontiguousarray(
+                rows, np.float32)).to(shard.device)
+        out = predict_fn(rows)
+        return hand_back(tuple(all_gather_rows(t, group) for t in out),
+                         on_device)
+
+    if local_rows:
+        sharded = run
+    else:
+        def sharded(images):
+            return run(images[shard.rows(images.shape[0])])
+
+    # not `device`: bucket_batches would copy a whole padded batch to the
+    # card before the closure keeps its rows
+    sharded.__dict__.update({k: v for k, v in predict_fn.__dict__.items()
+                             if k != "device"})
+    sharded.mesh = mesh
+    return sharded
+
+
 def graph_path(path: str) -> str:
     """The serialized serving graph beside an artifact: `<stem>.pt2`."""
     return os.path.splitext(path)[0] + ".pt2"
@@ -198,7 +242,7 @@ def load_predictor(path: str, device=None,
                    diou_nms: Optional[bool] = None,
                    pre_topk: Optional[int] = None,
                    max_det: Optional[int] = None,
-                   prefer_params: bool = False) -> Callable:
+                   prefer_params: bool = False, mesh=None) -> Callable:
     """Load a folded artifact → predict_fn(images) → numpy (boxes [B,D,4],
     scores [B,D], classes [B,D] int32, valid [B,D] bool).
 
@@ -219,9 +263,19 @@ def load_predictor(path: str, device=None,
     (`graph_predictor`: no model code is imported); otherwise the model is
     rebuilt from the `.npz` (the parameter path, whose predict_fn also
     carries the `model`). The thresholds, pre_topk and max_det are baked
-    into the graph, so an override takes the parameter path."""
+    into the graph, so an override takes the parameter path.
+
+    With `mesh` (parallel.mesh) batches spread over the process group:
+    each process runs its rows on its device and the detections are
+    gathered (`shard_predictor`); a mesh takes the parameter
+    path (the graph is one device's), and every batch bucket must divide
+    by the mesh size."""
     from yolo_nano_tpu_torch.config import config_from_json, read_meta
 
+    if mesh is not None:
+        from yolo_nano_tpu_torch.parallel.mesh import mesh_device
+
+        device = mesh_device(mesh)
     dev = resolve_device(device)
     overrides = {k: v for k, v in (
         ("conf_thresh", conf_thresh), ("nms_thresh", nms_thresh),
@@ -233,8 +287,17 @@ def load_predictor(path: str, device=None,
         raise ValueError(f"{path}: dtype {dtype!r}; float32 and bfloat16 "
                          "artifacts are supported")
     cfg = config_from_json(meta, **overrides)
+    if batch_buckets == "auto":
+        batch_buckets = default_buckets(meta["img_size"], cfg.backbone)
+    if batch_buckets and mesh is not None:
+        bad = [b for b in batch_buckets if b % mesh.size()]
+        if bad:
+            raise ValueError(
+                f"batch_buckets {bad} not divisible by the {mesh.size()}-"
+                "process mesh: sharded batches must split evenly over "
+                "axis 0")
     if (meta.get("graph") and os.path.exists(graph_path(path))
-            and not overrides and not prefer_params):
+            and not overrides and not prefer_params and mesh is None):
         fn = graph_predictor(graph_path(path), cfg, meta["img_size"], dev,
                              dtype)
     else:
@@ -246,8 +309,8 @@ def load_predictor(path: str, device=None,
             raise ValueError(f"{path}: a {dtype} artifact holds {found} "
                              "leaves")
         fn = predictor(model.to(dev), cfg, meta["img_size"], dev, dtype)
-    if batch_buckets == "auto":
-        batch_buckets = default_buckets(meta["img_size"], cfg.backbone)
+        if mesh is not None:
+            fn = shard_predictor(fn, mesh)
     if not batch_buckets:
         return fn
     return bucket_batches(fn, batch_buckets,

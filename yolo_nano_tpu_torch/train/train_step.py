@@ -9,11 +9,24 @@ BN overwrites. The NaN guard is `torch.where` on a device bool: on a
 non-finite loss the parameters, momentum, count, BN stats, step and EMA all
 keep their old values. All constants (grids, anchor tables) go to the
 device when the step is built, so a step makes no host→device copy either.
+
+Data parallelism (`mesh`, parallel.mesh): each process takes its rows of
+the global batch, the state is replicated, and the step does its own
+collectives, not DistributedDataParallel's hooks (the model runs
+functionally): train-mode BN takes the group's statistics
+(`ops.nn.sync_batch_norm`), and the gradients and the five losses go
+through one all-reduce of one flat buffer, divided by the group's size,
+before the NaN guard. Each process's losses are sums over its rows over
+its B/n, so the mean over processes is the loss of the global batch, and
+the mean of the gradients (the BN sums' backward carrying the other
+processes' terms) is its gradient; every process then takes the same
+update and the same NaN-guard decision.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 from torch.func import functional_call
 
 from yolo_nano_tpu_torch.config import YoloNanoConfig
@@ -21,7 +34,7 @@ from yolo_nano_tpu_torch.losses.targets import build_targets, target_tables
 from yolo_nano_tpu_torch.models.yolo_nano import (init_yolo_nano,
                                                   loss_from_features)
 from yolo_nano_tpu_torch.ops.decode import make_grids
-from yolo_nano_tpu_torch.ops.nn import resize_images
+from yolo_nano_tpu_torch.ops.nn import resize_images, sync_batch_norm
 from yolo_nano_tpu_torch.serving import resolve_device
 from yolo_nano_tpu_torch.train.state import (SGD, TrainState, ema_decay,
                                              ema_update, select)
@@ -41,12 +54,23 @@ class TrainStep:
     is step(state, images_u8, gt_boxes, gt_labels, regions, gen): uint8
     base canvases in, the in-graph augmentation drawn from the generator
     `gen` on the step's device, its output already at input_size (no
-    multi-scale resize), then the same body."""
+    multi-scale resize), then the same body.
+
+    With `mesh` the arguments are this process's rows of the global batch
+    and the state is the replicated one (module docstring)."""
 
     def __init__(self, cfg: YoloNanoConfig, tx: SGD, input_size: int,
-                 device=None, augment=None):
+                 device=None, augment=None, mesh=None):
         self.cfg, self.tx, self.input_size = cfg, tx, input_size
         self.augment = augment
+        self.group = self.world = None
+        if mesh is not None:
+            from yolo_nano_tpu_torch.parallel.mesh import (mesh_device,
+                                                           mesh_group)
+
+            self.group = mesh_group(mesh)
+            self.world = mesh.size()
+            device = mesh_device(mesh) if device is None else device
         self.device = resolve_device(device)
         self.skeleton = init_yolo_nano(torch.Generator(), cfg,
                                        device="cpu").to("meta")
@@ -64,12 +88,28 @@ class TrainStep:
         params = {k: v.detach().requires_grad_(True)
                   for k, v in state.params.items()}
         stats = {k: v.clone() for k, v in state.stats.items()}
-        feats = functional_call(self.skeleton, {**params, **stats}, (images,),
-                                strict=True)
+        with sync_batch_norm(self.group):
+            feats = functional_call(self.skeleton, {**params, **stats},
+                                    (images,), strict=True)
         losses = loss_from_features(*feats, targets, self.input_size,
                                     self.grids)
         total = losses[0] + losses[1] + losses[2] + losses[3]
         return total, losses, params, stats
+
+    def all_reduce(self, grads, total, losses):
+        """The gradients and the losses averaged over the group: one
+        all-reduce of one flat buffer. → (grads, total, losses)."""
+        scalars = torch.stack([total, *losses]).to(grads[0].dtype)
+        flat = torch.cat([g.reshape(-1) for g in grads] + [scalars])
+        dist.all_reduce(flat, group=self.group)
+        flat = flat / self.world
+        out, at = [], 0
+        for g in grads:
+            out.append(flat[at:at + g.numel()].view_as(g))
+            at += g.numel()
+        mean = flat[at:]
+        return (out, mean[0].to(total.dtype),
+                tuple(m.to(v.dtype) for m, v in zip(mean[1:], losses)))
 
     def update(self, state: TrainState, total, grads, new_stats
                ) -> TrainState:
@@ -102,18 +142,23 @@ class TrainStep:
         targets = self.targets(gt_boxes, gt_labels)
         total, losses, params, new_stats = self.loss(state, images, targets)
         grads = torch.autograd.grad(total, list(params.values()))
-        new_state = self.update(state, total.detach(),
-                                dict(zip(params, grads)), new_stats)
-        metrics = {"loss/total": total.detach(),
-                   **{k: v.detach() for k, v in zip(LOSS_NAMES, losses)},
+        total, losses = total.detach(), tuple(v.detach() for v in losses)
+        if self.group is not None:
+            grads, total, losses = self.all_reduce(grads, total, losses)
+        new_state = self.update(state, total, dict(zip(params, grads)),
+                                new_stats)
+        metrics = {"loss/total": total,
+                   **dict(zip(LOSS_NAMES, losses)),
                    "skipped_nonfinite": (~torch.isfinite(total)).to(
                        torch.int32)}
         return new_state, metrics
 
 
 def make_train_step(cfg: YoloNanoConfig, tx: SGD, input_size: int,
-                    device=None, augment=None) -> TrainStep:
-    """The step for one input size, on CUDA unless `device` names another;
-    multi-scale training builds one per size. `augment`: the in-graph
-    augmentation (TrainStep)."""
-    return TrainStep(cfg, tx, input_size, device, augment)
+                    device=None, augment=None, mesh=None) -> TrainStep:
+    """The step for one input size, on CUDA unless `device` names another
+    (with `mesh`, this process's device in it); multi-scale training builds
+    one per size. `augment`: the in-graph augmentation (TrainStep), built
+    with the same mesh; `mesh`: data parallelism over a process group
+    (module docstring)."""
+    return TrainStep(cfg, tx, input_size, device, augment, mesh)

@@ -1,6 +1,11 @@
 """Full-train-state checkpoints: params, BN stats, momentum, the optimizer's
 count, step and EMA, one directory per step (`<directory>/<step>/state.pt`,
 a `torch.save` of plain CPU tensors), keeping the newest `max_to_keep`.
+
+Under a process group (data parallelism, `parallel/`) the state is
+replicated, so only rank 0 writes, and every rank waits at a barrier after
+each save, so that none runs ahead of a checkpoint it may restore. Every
+rank restores the same file.
 """
 
 from __future__ import annotations
@@ -10,6 +15,7 @@ import shutil
 from typing import List, Optional
 
 import torch
+import torch.distributed as dist
 
 from yolo_nano_tpu_torch.train.state import TrainState
 
@@ -33,7 +39,16 @@ class CheckpointManager:
 
     def save(self, step: int, state: TrainState) -> None:
         """Write the step's directory whole (under a temporary name, then
-        renamed), then drop the oldest beyond max_to_keep."""
+        renamed), then drop the oldest beyond max_to_keep; under a process
+        group, rank 0 writes and all ranks meet at a barrier after."""
+        if dist.is_initialized():
+            if dist.get_rank() == 0:
+                self._write(step, state)
+            dist.barrier()
+        else:
+            self._write(step, state)
+
+    def _write(self, step: int, state: TrainState) -> None:
         final = os.path.join(self.directory, str(step))
         tmp = final + ".tmp"
         shutil.rmtree(tmp, ignore_errors=True)
