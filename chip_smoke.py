@@ -8,13 +8,17 @@
 
 Phases, each of which raises on failure (exit code non-zero, no result line):
   1. device and build: needs CUDA; prints the card's name and power limit,
-     builds the kernels (fused_dw_pw, fused_stage in f32, fused_stage_bf16)
-     from yolo_nano_tpu_torch/csrc with nvcc, one process per source;
+     builds the kernels (fused_dw_pw and fused_stage in f32,
+     fused_dw_pw_bf16, fused_stage_bf16) from yolo_nano_tpu_torch/csrc with
+     nvcc, one process per source;
   2. each kernel against its plain PyTorch version on the card, at the
      main-path shapes for batch 32 (1.0x COCO model, 416 px): max abs error
      and tolerance, kernel / plain / library ms, and the bound; each f32
      row is also run in f64 and fails if the kernel's error against it is
-     over 4x cuDNN f32's;
+     over 4x cuDNN f32's; each bf16 fused_dw_pw row is held in bf16 ulps of
+     max|ref| and bit-equal share, and over the rows against the witness
+     (f64 sums rounded where the function rounds: the share of outputs off
+     it);
   3. the main path: load_predictor on the committed folded artifact, 32
      rendered scenes, serving and eval-strict operating points; checks the
      kernel launch counts, the detections slot for slot against predict
@@ -37,8 +41,8 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
      max|ref| and the share of bit-equal elements, both of them against
      the block with f64 sums rounded where the function rounds (the
      share of outputs off it), with its ms, tile and bound per launch;
-     kernel / plain ms and bound per stage, bf16
-     fused_dw_pw at the heads; 16 bf16 fused_stage and 6 bf16 fused_dw_pw
+     kernel / plain ms and bound per stage, bf16 fused_dw_pw at the heads
+     (held as in phase 2); 16 bf16 fused_stage and 6 bf16 fused_dw_pw
      launches per forward; detections matched to the plain-version
      predict's at bf16 tolerance (match_detections); img/s and forward ms,
      and the forward's device time by kernel. Then the 1.0x artifact
@@ -81,7 +85,8 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
      stage block and head pair against its plain version at the 11 TTA
      sizes (320-640 px, batch 8) and at 416 px batch 1 (f32 by check_close
      and 4x cuDNN f32's error against f64, bf16 in ulps and bit-equal
-     share), with each shape's tiles, ms per forward and bound; one image
+     share, the heads also against the witness), with each shape's tiles,
+     ms per forward and bound; one image
      at batch 1 against its row of a batch of 8, bit for bit; TTA on 8
      scenes (22 x (16 + 6) launches, detections against the plain path's,
      img/s); cli.eval --tta on phase 6's COCO set (the kernel path's AP
@@ -146,7 +151,8 @@ tile side whose shared memory fits, each checked against the plain block,
 and marks the side the kernel's tile rule picks: in f32 at 1.0x, then in
 bf16 at 0.5x (the artifact) and at 1.0x (the f32 model cast); it replaces
 phase 3 and prints no result line. --sweep-dw-pw-tiles does the same for
-fused_dw_pw at each head level over a grid of tiles (columns x rows).
+fused_dw_pw at each head level over a grid of tiles (columns x rows): the
+f32 kernel at batch 32, the bf16 kernel at batch 32, 8 and 1.
 --graph-only runs phase 9 alone after phase 1, with no result line;
 --data-parallel-only runs phase 11 alone after phase 1, on the sets of
 phases 6 and 7 written anew, with no result line.
@@ -200,10 +206,11 @@ TIE_RTOL = 1e-3
 # output (20 measured in a stage-3 block of the 0.5x artifact)
 BF16_BLOCK_ULPS = 1
 BF16_BLOCK_EQUAL = 0.99
-# a bf16 stage's outputs off the witness (the blocks with f64 sums, rounded
-# where the function rounds): the kernel's count within this many times the
-# plain version's (cuDNN f32). 0.89x to 1.04x measured; sums carried
-# straight through the tensor core's accumulator gave 1.6x and 2x.
+# a bf16 kernel's outputs off the witness (its function with f64 sums,
+# rounded where the function rounds): over a stage, or over a phase's head
+# pairs, the kernel's count within this many times the plain version's
+# (cuDNN f32). Stages 0.89x to 1.04x measured; sums carried straight
+# through the tensor core's accumulator gave 1.6x and 2x.
 BF16_WITNESS_RATIO = 1.5
 # bf16 detections (match_detections): a flipped bf16 rounding moves a head
 # logit by an ulp (1/32 to 1/16 at 4 to 16), and a score by e^ulp − 1 of
@@ -408,11 +415,45 @@ def dw_pw_f64(x, dw_w, dw_b, pw_w, pw_b, act_mid, act_out):
     return activate(y, act_out)
 
 
+def check_bf16_pair(where, got, want, exact=None) -> dict:
+    """A bf16 fused_dw_pw output against its plain version's (within
+    BF16_BLOCK_ULPS of max|ref| and BF16_BLOCK_EQUAL bit-equal, else it
+    raises) and, given the witness `exact`, both against it: → the ulps,
+    the bit-equal share and the counts of outputs off the witness."""
+    ulps = bf16_ulps(got, want)[0]
+    same = float((got == want).float().mean())
+    if ulps > BF16_BLOCK_ULPS or same < BF16_BLOCK_EQUAL:
+        raise AssertionError(f"{where}: bf16 kernel {ulps:g} ulps of "
+                             f"max|ref| (tolerance {BF16_BLOCK_ULPS}), "
+                             f"{same:.5f} bit-equal (at least "
+                             f"{BF16_BLOCK_EQUAL})")
+    row = dict(ulps=ulps, bit_equal_share=same)
+    if exact is not None:
+        row.update(off_f64=int((got != exact).sum()),
+                   plain_off_f64=int((want != exact).sum()), n=want.numel())
+    return row
+
+
+def check_witness(tag, rows) -> None:
+    """Over rows of check_bf16_pair: the kernel's outputs off the witness
+    within BF16_WITNESS_RATIO times the plain version's."""
+    off = sum(r["off_f64"] for r in rows)
+    plain = sum(r["plain_off_f64"] for r in rows)
+    n = sum(r["n"] for r in rows)
+    print(f"  {tag}: off the f64-sum witness: kernel {off / n:.6f} ({off}),"
+          f" plain {plain / n:.6f} ({plain})")
+    if off > BF16_WITNESS_RATIO * plain:
+        raise AssertionError(f"{tag}: {off} kernel outputs off the f64-sum "
+                             f"witness, over {BF16_WITNESS_RATIO}x the plain"
+                             f" version's {plain}")
+
+
 def phase_fused_dw_pw(model, dtypes=(torch.float32, torch.bfloat16),
                       acts=(("leaky", "leaky"), (None, "relu")), phase="[2]"):
     """Head dw→pw pairs at 52², 26², 13² (C = 96), each act pair and dtype,
     with the trained head weights of each level. The f32 rows are also
-    held to f64."""
+    held to f64; the bf16 rows in bf16 ulps and bit-equal share, and
+    against the witness (check_bf16_pair, check_witness)."""
     import torch.nn.functional as F
 
     from yolo_nano_tpu_torch.ops.kernels.fused_conv import (fused_dw_pw,
@@ -452,13 +493,22 @@ def phase_fused_dw_pw(model, dtypes=(torch.float32, torch.bfloat16),
                 tag = (f"{hw}x{hw} {str(dtype)[6:]} "
                        f"{act_mid or 'none'}/{act_out} tile {tile[0]}x{tile[1]}")
                 out, want = kern(), plain()
-                err = check_close(tag, out, want, dtype)
-                row = dict(shape=tag, max_abs_err=err)
                 if dtype == torch.float32:
+                    err = check_close(tag, out, want, dtype)
+                    row = dict(shape=tag, max_abs_err=err)
                     row["err_vs_f64"], row["plain_err_vs_f64"] = (
                         check_against_f64(tag, dw_pw_f64(
                             x, dw_w, dw_b, w, pw_b, act_mid, act_out),
                             out, want))
+                else:
+                    err = (out.float() - want.float()).abs().max().item()
+                    row = dict(shape=tag, max_abs_err=err, **check_bf16_pair(
+                        tag, out, want, fused_dw_pw_plain(
+                            x, dw_w, dw_b, w, pw_b, act_mid=act_mid,
+                            act_out=act_out, wide=torch.float64)))
+                    print(f"  {tag}: {row['ulps']:.3g} bf16 ulps of max|ref|"
+                          f", {row['bit_equal_share']:.6f} bit-equal, max abs"
+                          f" err {err:.3g}")
                 px = BATCH * hw * hw
                 flops = px * (2 * 9 * c + 2 * c * cout)
                 b_ms, b_by = bound(nbytes(x, dw_w, dw_b, w, pw_b, out), flops,
@@ -473,53 +523,70 @@ def phase_fused_dw_pw(model, dtypes=(torch.float32, torch.bfloat16),
                       f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f}"
                       f" ms, bound {b_ms * 1e3:.2f} us ({b_by})")
                 rows.append(row)
+    bf16_rows = [r for r in rows if r["dtype"] == "bfloat16"]
+    if bf16_rows:
+        check_witness(f"{phase} bf16 fused_dw_pw", bf16_rows)
     return rows
 
 
-DW_PW_SIDES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 16, 18, 20, 26)
+DW_PW_SIDES = (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 16, 18, 20, 24,
+               26, 32)
+# (dtype, batch) of each sweep: the f32 kernel at the main path's batch,
+# the bf16 kernel at the batches its tile rule is fitted to
+DW_PW_SWEEPS = ((torch.float32, BATCH), (torch.bfloat16, BATCH),
+                (torch.bfloat16, 8), (torch.bfloat16, 1))
 
 
 def sweep_dw_pw_tiles(model):
-    """fused_dw_pw at 52², 26², 13² (f32, leaky/leaky, the trained pair-0
-    head weights) at every tile of DW_PW_SIDES × DW_PW_SIDES that fits:
-    kernel ms, each output checked against the plain version. '*' marks
-    tile_shape's pick; one JSON line per level holds every time."""
+    """fused_dw_pw at 52², 26², 13² (leaky/leaky, the trained pair-0 head
+    weights) at every tile of DW_PW_SIDES × DW_PW_SIDES that fits, for each
+    of DW_PW_SWEEPS: kernel ms, each output checked against the plain
+    version (f32 by check_close, bf16 in ulps and bit-equal share). '*'
+    marks tile_shape's pick; one JSON line per level holds every time."""
     from yolo_nano_tpu_torch.ops.kernels.fused_conv import (
-        _launch, _lib, fused_dw_pw_plain, tile_shape)
+        _launch, fused_dw_pw_plain, smem_bytes, tile_shape)
 
-    print(f"[sweep] fused_dw_pw ms by tile (columns x rows), batch {BATCH}")
-    lib = _lib()
     gen = torch.Generator(device="cuda").manual_seed(1)
-    picked = best = 0.0
-    for level, hw in enumerate((SIZE // 8, SIZE // 16, SIZE // 32)):
-        dw_w, dw_b, pw_w, pw_b = getattr(model, f"head{level}")._pairs()[0]
-        c, cout = pw_w.shape
-        x = torch.randn(BATCH, hw, hw, c, device="cuda", generator=gen
-                        ).permute(0, 3, 1, 2)
-        args = (x, dw_w, dw_b, pw_w, pw_b, "leaky", "leaky")
-        want = fused_dw_pw_plain(*args[:5])
-        pick = tile_shape(BATCH, hw, hw, c, cout, 4)
-        grid = {(tw, th) for tw in DW_PW_SIDES for th in DW_PW_SIDES
-                if tw <= hw and th <= hw and lib.fused_dw_pw_smem_bytes(
-                    tw, th, c, cout, 4) <= SMEM_MAX}
-        times = {}
-        for tile in sorted(grid | {pick}):
-            check_close(f"{hw}x{hw} tile {tile[0]}x{tile[1]}",
-                        _launch(*args, tile=tile), want, torch.float32)
-            times[tile] = time_ms(lambda: _launch(*args, tile=tile),
-                                  iters=10, queued=True)
-        ranked = sorted(times.items(), key=lambda kv: kv[1])
-        top = ", ".join(f"{t[0]}x{t[1]}{'*' if t == pick else ''} {ms:.4f}"
-                        for t, ms in ranked[:8])
-        rank = [t for t, _ in ranked].index(pick) + 1
-        print(f"  {hw}x{hw}: fastest {top}; pick {pick[0]}x{pick[1]} "
-              f"{times[pick]:.4f} ms, rank {rank} of {len(times)}")
-        print(json.dumps({"level": hw, "ms_by_tile": {
-            f"{t[0]}x{t[1]}": ms for t, ms in times.items()}}))
-        picked += times[pick]
-        best += ranked[0][1]
-    print(f"  summed over the 3 levels: tile_shape's picks {picked:.4f} ms, "
-          f"the fastest tile of each {best:.4f} ms")
+    for dtype, batch in DW_PW_SWEEPS:
+        label = str(dtype)[6:]
+        print(f"[sweep] {label} fused_dw_pw ms by tile (columns x rows), "
+              f"batch {batch}")
+        picked = best = 0.0
+        for level, hw in enumerate((SIZE // 8, SIZE // 16, SIZE // 32)):
+            dw_w, dw_b, pw_w, pw_b = getattr(model, f"head{level}")._pairs()[0]
+            c, cout = pw_w.shape
+            x = torch.randn(batch, hw, hw, c, device="cuda", generator=gen
+                            ).to(dtype).permute(0, 3, 1, 2)
+            args = (x, dw_w, dw_b, pw_w.to(dtype), pw_b, "leaky", "leaky")
+            want = fused_dw_pw_plain(*args[:5])
+            pick = tile_shape(batch, hw, hw, c, cout, x.element_size())
+            grid = {(tw, th) for tw in DW_PW_SIDES for th in DW_PW_SIDES
+                    if tw <= hw and th <= hw
+                    and smem_bytes(tw, th, c, cout, dtype) <= SMEM_MAX}
+            times = {}
+            for tile in sorted(grid | {pick}):
+                got = _launch(*args, tile=tile)
+                where = f"{label} b{batch} {hw}x{hw} tile {tile[0]}x{tile[1]}"
+                if dtype == torch.float32:
+                    check_close(where, got, want, dtype, verbose=False)
+                else:
+                    check_bf16_pair(where, got, want)
+                times[tile] = time_ms(lambda: _launch(*args, tile=tile),
+                                      iters=10, queued=True)
+            ranked = sorted(times.items(), key=lambda kv: kv[1])
+            top = ", ".join(f"{t[0]}x{t[1]}{'*' if t == pick else ''} "
+                            f"{ms:.4f}" for t, ms in ranked[:8])
+            rank = [t for t, _ in ranked].index(pick) + 1
+            print(f"  {hw}x{hw}: fastest {top}; pick {pick[0]}x{pick[1]} "
+                  f"{times[pick]:.4f} ms, rank {rank} of {len(times)}")
+            print(json.dumps({"dtype": label, "batch": batch, "level": hw,
+                              "pick": f"{pick[0]}x{pick[1]}", "ms_by_tile": {
+                                  f"{t[0]}x{t[1]}": ms
+                                  for t, ms in times.items()}}))
+            picked += times[pick]
+            best += ranked[0][1]
+        print(f"  {label} b{batch}, summed over the 3 levels: tile_shape's "
+              f"picks {picked:.4f} ms, the fastest tile of each {best:.4f} ms")
 
 
 def _stage_cost(x, blocks):
@@ -2325,13 +2392,13 @@ def check_heads(tag, model, size, batch, dtype, gen):
     """Both dw→pw pairs of each head level at this size on a seeded input,
     the kernel against its plain version: f32 by check_close and within 4x
     cuDNN f32's error against f64; bf16 within BF16_BLOCK_ULPS of max|ref|
-    and BF16_BLOCK_EQUAL bit-equal. Pair 0 of each level is timed. → one
-    row per level."""
+    and BF16_BLOCK_EQUAL bit-equal, and over the levels against the witness
+    (check_witness). Pair 0 of each level is timed. → one row per level."""
     from yolo_nano_tpu_torch.ops.kernels.fused_conv import (fused_dw_pw,
                                                             fused_dw_pw_plain,
                                                             tile_shape)
 
-    rows = []
+    rows, checked = [], []
     for level, hw in enumerate((size // 8, size // 16, size // 32)):
         pairs = getattr(model, f"head{level}")._pairs()
         c, cout = pairs[0][2].shape
@@ -2349,12 +2416,11 @@ def check_heads(tag, model, size, batch, dtype, gen):
                 check_against_f64(where, dw_pw_f64(
                     x, dw_w, dw_b, pw_w, pw_b, "leaky", "leaky"), got, want)
             else:
-                u = bf16_ulps(got, want)[0]
-                same = float((got == want).float().mean())
-                if u > BF16_BLOCK_ULPS or same < BF16_BLOCK_EQUAL:
-                    raise AssertionError(f"{where}: bf16 kernel {u:g} ulps "
-                                         f"of max|ref|, {same:.5f} bit-equal")
-                ulps, equal = max(ulps, u), min(equal, same)
+                r = check_bf16_pair(where, got, want, fused_dw_pw_plain(
+                    x, dw_w, dw_b, pw_w, pw_b, wide=torch.float64))
+                checked.append(r)
+                ulps = max(ulps, r["ulps"])
+                equal = min(equal, r["bit_equal_share"])
                 err = max(err, (got.float() - want.float()).abs().max().item())
         dw_w, dw_b, pw_w, pw_b = pairs[0]
         out = fused_dw_pw(x, dw_w, dw_b, pw_w, pw_b)
@@ -2368,6 +2434,8 @@ def check_heads(tag, model, size, batch, dtype, gen):
             bound_ms=b_ms, bound_by=b_by, max_abs_err=err,
             **({} if dtype == torch.float32 else
                dict(ulps=ulps, bit_equal_share=equal))))
+    if checked:
+        check_witness(f"{tag} heads", checked)
     return rows
 
 
@@ -3687,7 +3755,7 @@ def main():
         kernel_row("fused_stage", "fused_stage.cu", stage_rows, 1,
                    counts["fused_stage"], stage_tpu),
         # the bf16 launches of the 0.5x artifact's main path (phase 5)
-        kernel_row("fused_dw_pw_bf16", dw_pw_src, dw_rows05, 2,
+        kernel_row("fused_dw_pw_bf16", "fused_dw_pw_bf16.cu", dw_rows05, 2,
                    counts05["fused_dw_pw_bf16"], dw_pw_tpu),
         kernel_row("fused_stage_bf16", "fused_stage_bf16.cu", stage_rows05, 1,
                    counts05["fused_stage_bf16"], stage_tpu)]

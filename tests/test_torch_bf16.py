@@ -254,6 +254,46 @@ def test_block_plain_bf16_rounds_where_pallas_rounds():
     assert bf16_ulps(nhwc(got), nhwc(want)).max() <= 1
 
 
+@pytest.mark.parametrize("acts", [("leaky", "leaky"), (None, "relu")])
+@pytest.mark.parametrize("shape", [(1, 13, 11, 96, 96), (1, 9, 7, 20, 28)])
+def test_dw_pw_witness_rounds_where_pallas_rounds(acts, shape):
+    """The bf16 witness of the fused_dw_pw kernels, fused_dw_pw_plain with
+    wide = f64 (f64 sums, rounded to bf16 where the function rounds: the
+    mid activation and the output), against the Pallas kernel in interpret
+    mode on the same bf16 x: within one bf16 ulp of max|ref| and at least
+    99% bit-equal (the two round the same values, from f64 and f32 sums;
+    a rounding point missed or added would flip most outputs). At the heads'
+    C = Cout = 96 and at C = 20 → Cout = 28."""
+    from yolo_nano_tpu.ops.pallas import fused_conv as jfc
+
+    from yolo_nano_tpu_torch.ops.kernels import fused_conv as tfc
+
+    b, h, w, c, cout = shape
+    rng = np.random.default_rng(c)
+    x = rng.normal(0, 1, (b, h, w, c)).astype(np.float32)
+    dw_w = rng.normal(0, 0.3, (3, 3, c)).astype(np.float32)
+    dw_b = rng.normal(0, 0.1, (c,)).astype(np.float32)
+    pw_w = rng.normal(0, 0.2, (c, cout)).astype(np.float32)
+    pw_b = rng.normal(0, 0.1, (cout,)).astype(np.float32)
+    kw = dict(act_mid=acts[0], act_out=acts[1])
+    xj = jnp.asarray(x, jnp.bfloat16)
+    want = np.asarray(jfc.fused_dw_pw(
+        xj, jnp.asarray(dw_w), jnp.asarray(dw_b),
+        jnp.asarray(pw_w, jnp.bfloat16), jnp.asarray(pw_b), interpret=True,
+        **kw)).astype(np.float32)
+    bf = torch.bfloat16
+    got = tfc.fused_dw_pw_plain(
+        nchw(np.array(xj.astype(jnp.float32)), bf), torch.from_numpy(dw_w),
+        torch.from_numpy(dw_b), torch.from_numpy(pw_w).to(bf),
+        torch.from_numpy(pw_b), wide=torch.float64, **kw)
+    assert got.dtype == bf
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    got = nhwc(got)
+    top_ulp = 2.0 ** (np.floor(np.log2(np.abs(want).max())) - 7)
+    assert np.abs(got - want).max() <= top_ulp
+    assert (got == want).mean() >= 0.99
+
+
 def test_cast_f32_to_bf16_matches_jax(small_tree):
     """Every f32 parameter, biases included, becomes bf16 bit for bit as
     JAX's cast_f32_to_bf16 rounds it; BN stats stay f32; the original is

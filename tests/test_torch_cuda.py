@@ -7,9 +7,11 @@ Shapes include ragged tiles (sizes not a multiple of the tile), widths not
 a multiple of 8, more tiles than SMs (so fused_dw_pw's persistent blocks
 walk several tiles each) and odd inputs to stride-2 blocks. Tolerances: f32
 1e-4·max|ref| + 1e-5 (the tensor-core products sum in another order than
-cuDNN); bf16 fused_dw_pw rtol 2e-2, atol 2e-2; the bf16 stage kernel block
-by block in bf16 ulps (BF16_BLOCK_ULPS) and mostly bit-equal; against f64,
-at most 4x the error of cuDNN in f32.
+cuDNN); the bf16 kernels (fused_dw_pw by call, the stage block by block)
+in bf16 ulps of max|ref| (BF16_BLOCK_ULPS) and mostly bit-equal; against
+f64, at most 4x the error of cuDNN in f32; bf16 fused_dw_pw against its
+witness (f64 sums, rounded where the function rounds), off it no more often
+than BF16_WITNESS_RATIO times the plain version (f32 sums).
 """
 
 import numpy as np
@@ -17,9 +19,21 @@ import pytest
 import torch
 
 pytestmark = pytest.mark.cuda
-# the bf16 stage kernel against its plain version, block by block: bf16
-# ulps of the block output's max|ref| (as chip_smoke.py holds it)
+# the bf16 kernels against their plain versions (fused_dw_pw by call, the
+# stage block by block): bf16 ulps of the output's max|ref|, and the least
+# share of bit-equal elements (as chip_smoke.py holds them)
 BF16_BLOCK_ULPS = 1
+BF16_BLOCK_EQUAL = 0.99
+# bf16 fused_dw_pw's outputs off its f64-sum witness, over the plain
+# version's (as chip_smoke.py holds the kernels)
+BF16_WITNESS_RATIO = 1.5
+# the bf16 fused_dw_pw tile rule's picks at the heads' C = Cout = 96 and
+# the blocks an SM holds at each: (batch, side) → ((columns, rows), blocks)
+BF16_DW_PW_TILES = {
+    (32, 52): ((13, 9), 2), (32, 26): ((7, 13), 2), (32, 13): ((7, 7), 2),
+    (8, 80): ((10, 10), 2), (8, 40): ((5, 10), 2), (8, 20): ((5, 5), 2),
+    (8, 10): ((4, 2), 2), (1, 52): ((6, 4), 2), (1, 26): ((3, 2), 2),
+    (1, 13): ((2, 1), 2)}
 
 
 @pytest.fixture
@@ -41,22 +55,36 @@ def _randn(gen, *shape, scale=1.0):
     return torch.randn(*shape, generator=gen) * scale
 
 
+def _bf16_close(got, want):
+    """bf16 got within BF16_BLOCK_ULPS of max|want| and BF16_BLOCK_EQUAL of
+    its elements bit-equal."""
+    ulps = _bf16_ulps(got, want)
+    equal = (got == want).float().mean().item()
+    assert ulps <= BF16_BLOCK_ULPS and equal >= BF16_BLOCK_EQUAL, (ulps,
+                                                                   equal)
+
+
+def _dw_pw_args(g, dev, dtype, c, cout):
+    return (_randn(g, 3, 3, c, scale=0.2).to(dev),
+            _randn(g, c, scale=0.1).to(dev),
+            _randn(g, c, cout, scale=0.1).to(dev, dtype),
+            _randn(g, cout, scale=0.1).to(dev))
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("acts", [("leaky", "leaky"), (None, "relu")])
 @pytest.mark.parametrize("shape", [(3, 96, 13, 11), (2, 24, 8, 8),
                                    (1, 40, 17, 5), (2, 20, 9, 7)])
 def test_fused_dw_pw_kernel_matches_plain(dev, dtype, acts, shape):
+    """f32 within its tolerance, bf16 in ulps and bit-equal share; Cout =
+    C + 8 (C = 20 → Cout = 28: neither a multiple of 16)."""
     from yolo_nano_tpu_torch.ops.kernels.fused_conv import (fused_dw_pw,
                                                             fused_dw_pw_plain)
 
     g = torch.Generator().manual_seed(0)
     b, c, h, w = shape
-    cout = c + 8
     x = _randn(g, b, h, w, c).permute(0, 3, 1, 2).to(dev, dtype)
-    args = (_randn(g, 3, 3, c, scale=0.2).to(dev),
-            _randn(g, c, scale=0.1).to(dev),
-            _randn(g, c, cout, scale=0.1).to(dev, dtype),
-            _randn(g, cout, scale=0.1).to(dev))
+    args = _dw_pw_args(g, dev, dtype, c, c + 8)
     kw = dict(act_mid=acts[0], act_out=acts[1])
     before = fused_dw_pw.launches
     got = fused_dw_pw(x, *args, **kw)
@@ -68,8 +96,7 @@ def test_fused_dw_pw_kernel_matches_plain(dev, dtype, acts, shape):
     if dtype == torch.float32:
         _close_f32(got, want)
     else:
-        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
-                                   atol=2e-2)
+        _bf16_close(got, want)
 
 
 def test_fused_dw_pw_refuses_nchw_contiguous(dev):
@@ -88,7 +115,9 @@ def test_fused_dw_pw_refuses_nchw_contiguous(dev):
     ((4, 40, 30, 28), (5, 3)),     # 240 ragged tiles
     ((8, 96, 52, 52), (13, 9)),    # main-path width and tile, 192 tiles
     ((2, 20, 9, 7), (4, 4)),       # C, Cout not multiples of 8
-    ((1, 19, 6, 10), (3, 4)),      # odd C: no 16-byte copies or stores
+    ((1, 19, 6, 10), (3, 4)),      # odd C, Cout: no 16-byte copies or stores
+    ((2, 96, 26, 26), (16, 6)),    # the bf16 kernel's two blocks an SM
+    ((1, 96, 13, 13), (16, 4)),    # a tile wider than the image
 ])
 def test_fused_dw_pw_kernel_at_given_tiles(dev, dtype, shape, tile):
     """The launch at a given tile, whatever the tile rule picks."""
@@ -97,20 +126,68 @@ def test_fused_dw_pw_kernel_at_given_tiles(dev, dtype, shape, tile):
 
     g = torch.Generator().manual_seed(5)
     b, c, h, w = shape
-    cout = c + 8
     x = _randn(g, b, h, w, c).permute(0, 3, 1, 2).to(dev, dtype)
-    args = (_randn(g, 3, 3, c, scale=0.2).to(dev),
-            _randn(g, c, scale=0.1).to(dev),
-            _randn(g, c, cout, scale=0.1).to(dev, dtype),
-            _randn(g, cout, scale=0.1).to(dev))
+    args = _dw_pw_args(g, dev, dtype, c, c + 8)
     got = _launch(x, *args, "leaky", "leaky", tile=tile)
     want = fused_dw_pw_plain(x, *args)
     torch.cuda.synchronize()
     if dtype == torch.float32:
         _close_f32(got, want)
     else:
-        torch.testing.assert_close(got.float(), want.float(), rtol=2e-2,
-                                   atol=2e-2)
+        _bf16_close(got, want)
+
+
+@pytest.mark.parametrize("acts", [("leaky", "leaky"), (None, "relu")])
+@pytest.mark.parametrize("batch", [1, 32])
+def test_fused_dw_pw_bf16_at_head_shapes(dev, batch, acts):
+    """The bf16 kernel at the heads' 52², 26² and 13² (C = Cout = 96), at
+    the tile its rule picks: each level in ulps and bit-equal share; over
+    the three levels, its outputs off the witness (fused_dw_pw_plain with
+    f64 sums) at most BF16_WITNESS_RATIO times the plain version's."""
+    from yolo_nano_tpu_torch.ops.kernels.fused_conv import (fused_dw_pw,
+                                                            fused_dw_pw_plain)
+
+    g = torch.Generator().manual_seed(9)
+    bf = torch.bfloat16
+    kw = dict(act_mid=acts[0], act_out=acts[1])
+    off = plain_off = 0
+    for side in (52, 26, 13):
+        x = _randn(g, batch, side, side, 96).permute(0, 3, 1, 2).to(dev, bf)
+        args = _dw_pw_args(g, dev, bf, 96, 96)
+        before = fused_dw_pw.launches_bf16
+        got = fused_dw_pw(x, *args, **kw)
+        assert fused_dw_pw.launches_bf16 == before + 1
+        want = fused_dw_pw_plain(x, *args, **kw)
+        exact = fused_dw_pw_plain(x, *args, wide=torch.float64, **kw)
+        torch.cuda.synchronize()
+        _bf16_close(got, want)
+        off += int((got != exact).sum())
+        plain_off += int((want != exact).sum())
+    assert off <= BF16_WITNESS_RATIO * plain_off, (off, plain_off)
+
+
+@pytest.mark.parametrize("cout", [96, 28, 27, 320])
+@pytest.mark.parametrize("offset", [1, 2])
+def test_fused_dw_pw_bf16_takes_an_unaligned_input(dev, offset, cout):
+    """bf16 x at a storage offset of one element (2-byte aligned: single
+    loads) or two (4-byte: 4-byte copies), ragged H and W; Cout a multiple
+    of 8, even, odd, and above 256 (the product's wide variant)."""
+    from yolo_nano_tpu_torch.ops.kernels.fused_conv import (fused_dw_pw,
+                                                            fused_dw_pw_plain)
+
+    g = torch.Generator().manual_seed(10)
+    bf = torch.bfloat16
+    c = 20 if cout == 28 else 96
+    want_in = _randn(g, 3, 15, 11, c).to(dev, bf)
+    buf = torch.zeros(want_in.numel() + offset, device=dev, dtype=bf)
+    x = buf[offset:].view(want_in.shape).permute(0, 3, 1, 2)
+    x.copy_(want_in.permute(0, 3, 1, 2))
+    assert x.is_contiguous(memory_format=torch.channels_last)
+    assert x.data_ptr() % 16
+    args = _dw_pw_args(g, dev, bf, c, cout)
+    got = fused_dw_pw(x, *args)
+    torch.cuda.synchronize()
+    _bf16_close(got, fused_dw_pw_plain(x, *args))
 
 
 @pytest.fixture(scope="module")
@@ -153,26 +230,44 @@ def test_fused_dw_pw_on_trained_head_weights(dev, trained_model, pair):
 
 
 def test_dw_pw_tiles_at_main_path_widths(dev):
-    """The kernel's tile rule and shared-memory layout (fused_dw_pw_tile,
-    fused_dw_pw_smem_bytes) at the heads' C = Cout = 96, batch 32, 416 px:
-    (side, element bytes) → (columns, rows); and the widths it refuses."""
-    from yolo_nano_tpu_torch.ops.kernels.fused_conv import _lib, tile_shape
+    """Each kernel's tile rule and shared-memory layout at the heads' C =
+    Cout = 96: the f32 kernel's (fused_dw_pw_tile, fused_dw_pw_smem_bytes)
+    at batch 32, 416 px; the bf16 kernel's own (fused_dw_pw_bf16_tile,
+    fused_dw_pw_bf16_smem_bytes, fused_dw_pw_bf16_blocks_per_sm) at batch
+    32 (416 px), 8 (320 and 640 px) and 1 (416 px), the picks of the rule
+    fitted to chip_smoke.py --sweep-dw-pw-tiles, with the blocks an SM
+    holds: (batch, side) → (columns, rows); the layouts' bytes; and the
+    widths each refuses."""
+    from yolo_nano_tpu_torch.ops.kernels.fused_conv import (_lib, smem_bytes,
+                                                            tile_shape)
 
-    smem = _lib().fused_dw_pw_smem_bytes
-    want = {(52, 4): (13, 9), (26, 4): (13, 7), (13, 4): (13, 4),
-            (52, 2): (18, 7), (26, 2): (26, 7), (13, 2): (13, 4)}
-    for (side, elem), tile in want.items():
-        assert tile_shape(32, side, side, 96, 96, elem) == tile
-        assert smem(*tile, 96, 96, elem) <= 227 * 1024
+    f32, bf16 = torch.float32, torch.bfloat16
+    want = {52: (13, 9), 26: (13, 7), 13: (13, 4)}
+    for side, tile in want.items():
+        assert tile_shape(32, side, side, 96, 96, 4) == tile
+        assert smem_bytes(*tile, 96, 96, f32) <= 227 * 1024
     # weights 96 x 104; taps and biases 9·96 + 96 + 96; output 128 rows x
     # 100; two regions of 15 x 11 cells x 96 channels
-    assert smem(13, 9, 96, 96, 4) == 4 * (96 * 104 + 1056 + 128 * 100) + 2 * (
-        11 * 15 * 96 * 4)
-    # C 20 → regions of 24 bf16 (16-byte rows); D at act_stride(28) = 36
-    assert smem(4, 4, 20, 28, 2) == 4 * (24 * 40 + 228 + 16 * 36) + 2 * (
-        36 * 24 * 2)
+    assert smem_bytes(13, 9, 96, 96, f32) == 4 * (
+        96 * 104 + 1056 + 128 * 100) + 2 * (11 * 15 * 96 * 4)
     with pytest.raises(ValueError, match="do not fit"):
         tile_shape(2, 8, 8, 256, 256, 4)
+    blocks = _lib(bf16).fused_dw_pw_bf16_blocks_per_sm
+    for (batch, side), (tile, per_sm) in BF16_DW_PW_TILES.items():
+        assert tile_shape(batch, side, side, 96, 96, 2) == tile, (batch, side)
+        assert smem_bytes(*tile, 96, 96, bf16) <= 227 * 1024
+        assert blocks(*tile, 96, 96) == per_sm, (batch, side)
+    # taps, biases and a zero (9·96 + 96 + 96 + 1, to 1060 floats); weights
+    # 96 rows x (96 + 8); output 128 rows x 104; two regions of 15 x 11
+    # cells x 96 channels: two blocks an SM
+    assert smem_bytes(13, 9, 96, 96, bf16) == 4 * 1060 + 2 * (
+        96 * 104 + 128 * 104 + 2 * 15 * 11 * 96)
+    # C 20 → Cout 28: 232 floats; weights 32 rows x 40; output 16 rows x
+    # act_stride(28) = 40; regions of 36 cells x 24 (16-byte cells)
+    assert smem_bytes(4, 4, 20, 28, bf16) == 4 * 232 + 2 * (
+        32 * 40 + 16 * 40 + 2 * 36 * 24)
+    with pytest.raises(ValueError, match="do not fit"):
+        tile_shape(2, 8, 8, 512, 512, 2)
 
 
 def _random_stage(gen, cin, cout, n_blocks):

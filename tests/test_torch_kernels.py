@@ -247,24 +247,6 @@ def test_tf32_split_product_error_at_stage_widths(trained_model, part, key,
     assert np.abs(one - ref).max() > 1e-4 * scale
 
 
-def test_bf16_operands_pass_tf32_rounding_unchanged():
-    """Why the bf16 kernel takes one TF32 pass: a bf16 value (7 mantissa
-    bits) is exact in TF32 (10), so the split gives hi = x, lo = 0, and the
-    single pass a_hi·b_hi is the exact product. Seeded values over many
-    binades, with the extremes of the mantissa and signed zeros."""
-    rng = np.random.default_rng(7)
-    x = (rng.normal(size=4096) * np.exp2(rng.integers(-30, 30, 4096)))
-    x = np.concatenate([x, [0.0, -0.0, 1.0, -1.0, 1.9921875, -255.0,
-                            3.3895e38, 1.1755e-38]]).astype(np.float32)
-    b = torch.from_numpy(x).to(torch.bfloat16).float().numpy()
-    assert not np.array_equal(b, x)  # the rounding to bf16 did something
-    hi = _tf32(b)
-    assert np.array_equal(hi.view(np.uint32), b.view(np.uint32))
-    assert not _tf32(b - hi).any()
-    # and a rounding f32 value is not exact: the f32 kernel needs 3 passes
-    assert not np.array_equal(_tf32(x), x)
-
-
 def test_fused_dw_pw_launch_refuses_wide_cout():
     """The wrapper's check before any launch: the gemm's warps cover Cout
     up to 512. (Widths whose weights do not fit in shared memory are the

@@ -1,12 +1,13 @@
-// Fused depthwise-3x3 -> act -> pointwise-1x1 -> act, for Hopper (sm_90a).
+// Fused depthwise-3x3 -> act -> pointwise-1x1 -> act in f32, for Hopper
+// (sm_90a). The bf16 kernel is fused_dw_pw_bf16.cu.
 //
-// Replaces the TPU kernel yolo_nano_tpu/ops/pallas/fused_conv.py::fused_dw_pw
-// (body `_kernel`): for x [B,H,W,C] (NHWC in memory)
+// Replaces the f32 variant of the TPU kernel
+// yolo_nano_tpu/ops/pallas/fused_conv.py::fused_dw_pw (body `_kernel`): for
+// x [B,H,W,C] (NHWC in memory)
 //   out = act_out( act_mid( dw3x3(x, pad 1, stride 1) + dw_b ) @ pw_w + pw_b )
-// with the depthwise taps summed in f32, the pointwise product taken in x's
-// dtype (the mid activation rounded to it) with f32 accumulation, and the
-// output written in x's dtype. It runs the two dw->pw pairs of each detection
-// head: C = Cout = 96 at 52x52, 26x26 and 13x13 for a 416 input.
+// with the depthwise taps and the pointwise products summed in f32. It runs
+// the two dw->pw pairs of each detection head: C = Cout = 96 at 52x52, 26x26
+// and 13x13 for a 416 input.
 //
 // What bounds it on this card: per output pixel it moves C inputs and Cout
 // outputs and does 2*9*C + 2*C*Cout operations. Kept to f32 accuracy the
@@ -17,10 +18,9 @@
 // device memory (the fusion) and the input loads overlap the compute.
 //
 // What the design does about it:
-//   - the pointwise product goes through mma_tf32::gemm (3xTF32 mma.sync in
-//     f32, one TF32 pass in bf16, whose operands are exact in TF32), with the
-//     weights resident in shared memory: loaded once per block (by 16-byte
-//     cp.async in f32), converted to f32 and zero-padded to multiples of 8
+//   - the pointwise product goes through mma_tf32::gemm (3xTF32 mma.sync),
+//     with the weights resident in shared memory: loaded once per block (by
+//     16-byte cp.async where Cout allows) and zero-padded to multiples of 8
 //     rows and columns there; the taps and biases sit beside them;
 //   - a persistent grid, one block of 16 warps per SM, walks the tw x th
 //     output tiles of all images; the next tile's input region arrives by
@@ -46,9 +46,9 @@
 //        rounded to 4);
 //   D:   rows16(tw*th) x act_stride(max(C, Cout)) floats: the depthwise
 //        output (the product's A operand, pad columns 0), then the output;
-//   two region buffers of (th+2) x (tw+2) cells x ldr elements of x's
-//        dtype, ldr = C rounded to 16 bytes, 0 outside the image (the pad 1).
-// At C = Cout = 96 in f32 with a 13 x 9 tile: 39,936 + 4,224 + 51,200 +
+//   two region buffers of (th+2) x (tw+2) cells x ldr floats, ldr = C
+//        rounded to 4, 0 outside the image (the pad 1).
+// At C = Cout = 96 with a 13 x 9 tile: 39,936 + 4,224 + 51,200 +
 // 2 x 63,360 = 222,080 bytes of the 232,448 a block may use.
 // Widths whose weights and smallest tile do not fit (C = Cout above 216)
 // are refused.
@@ -69,72 +69,31 @@ constexpr size_t kSmemMax = 227 * 1024;
 constexpr int kSMs = 132;  // streaming multiprocessors of an H100 SXM
 
 struct Layout {
-  int P, cells, ldr, ldd, w, par, d;  // w, par, d: floats; ldr: elements
+  int P, cells, ldr, ldd, w, par, d;  // floats
   size_t region;                      // bytes of one region buffer
-  __host__ __device__ Layout(int tw, int th, int C, int Cout, int elem) {
+  __host__ __device__ Layout(int tw, int th, int C, int Cout) {
     P = tw * th;
     cells = (tw + 2) * (th + 2);
-    ldr = round_up(C, 16 / elem);
+    ldr = round_up(C, 4);
     ldd = act_stride(C > Cout ? C : Cout);
     w = round_up(C, 8) * w_stride(Cout);
     par = round_up(10 * C + Cout, 4);  // 16-byte aligned buffers after it
     d = round_up(P, 16) * ldd;
-    region = static_cast<size_t>(cells) * ldr * elem;
+    region = static_cast<size_t>(cells) * ldr * sizeof(float);
   }
   __host__ __device__ size_t bytes() const {
     return sizeof(float) * (static_cast<size_t>(w) + par + d) + 2 * region;
   }
 };
 
-// Calls f(cy, cx, k) for every cell (cy, cx) of a grid cols cells wide
-// (a region, the tile's pixels, the weight rows) and every k < per_cell,
-// item i = cell * per_cell + k spread over the block's threads; the indices
-// are walked without a division per step.
-template <typename F>
-__device__ __forceinline__ void for_each_cell(int cells, int cols,
-                                              int per_cell, F f) {
-  const int step = blockDim.x;
-  const int dk = step % per_cell;
-  const int dcy = step / per_cell / cols;
-  const int dcx = step / per_cell % cols;
-  int k = threadIdx.x % per_cell;
-  int cy = threadIdx.x / per_cell / cols;
-  int cx = threadIdx.x / per_cell % cols;
-  for (int i = threadIdx.x; i < cells * per_cell; i += step) {
-    f(cy, cx, k);
-    k += dk;
-    const int carry = k >= per_cell;
-    k -= carry * per_cell;
-    cx += dcx + carry;
-    cy += dcy;
-    if (cx >= cols) {
-      cx -= cols;
-      ++cy;
-    }
-  }
-}
+using ynt::for_each_cell;
 
-// 16 bytes of output from 16 bytes' worth of f32 values in shared memory.
-__device__ __forceinline__ void store16(float* dst, const float* src) {
-  *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
-}
-__device__ __forceinline__ void store16(__nv_bfloat16* dst, const float* src) {
-  uint32_t u[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const __nv_bfloat162 v = __floats2bfloat162_rn(src[2 * i], src[2 * i + 1]);
-    u[i] = *reinterpret_cast<const uint32_t*>(&v);
-  }
-  *reinterpret_cast<uint4*>(dst) = make_uint4(u[0], u[1], u[2], u[3]);
-}
-
-// Depthwise 3x3 (+ bias, act_mid, rounded to T) of a (th+2) x (tw+2) region
+// Depthwise 3x3 (+ bias, act_mid) of a (th+2) x (tw+2) region
 // into dst, rows16(tw*th) x round8(C) at row stride ldd, pad columns 0; w
 // [9][C] and b [C] in shared memory. A thread takes one channel of one
 // output row and slides the 3x3 window along it; neighbouring threads take
 // neighbouring channels.
-template <typename T>
-__device__ __forceinline__ void depthwise(const T* src, int ldr, int tw,
+__device__ __forceinline__ void depthwise(const float* src, int ldr, int tw,
                                           int th, int C, const float* w,
                                           const float* b, int act_mid,
                                           float* dst, int ldd) {
@@ -153,16 +112,13 @@ __device__ __forceinline__ void depthwise(const T* src, int ldr, int tw,
 #pragma unroll
     for (int k = 0; k < 9; ++k) tap[k] = w[k * C + c];
     const float bias = b[c];
-    const T* s = src + y * row + c;
+    const float* s = src + y * row + c;
     // window columns px (l), px+1 (m), px+2 (r); rows dy = 0, 1, 2
-    float l0 = ynt::to_float(s[0]), l1 = ynt::to_float(s[row]),
-          l2 = ynt::to_float(s[2 * row]);
-    float m0 = ynt::to_float(s[ldr]), m1 = ynt::to_float(s[row + ldr]),
-          m2 = ynt::to_float(s[2 * row + ldr]);
+    float l0 = s[0], l1 = s[row], l2 = s[2 * row];
+    float m0 = s[ldr], m1 = s[row + ldr], m2 = s[2 * row + ldr];
     for (int px = 0; px < tw; ++px) {
-      const T* sr = s + (px + 2) * ldr;
-      const float r0 = ynt::to_float(sr[0]), r1 = ynt::to_float(sr[row]),
-                  r2 = ynt::to_float(sr[2 * row]);
+      const float* sr = s + (px + 2) * ldr;
+      const float r0 = sr[0], r1 = sr[row], r2 = sr[2 * row];
       float acc = 0.f;
       acc = fmaf(l0, tap[0], acc);
       acc = fmaf(m0, tap[1], acc);
@@ -173,29 +129,28 @@ __device__ __forceinline__ void depthwise(const T* src, int ldr, int tw,
       acc = fmaf(l2, tap[6], acc);
       acc = fmaf(m2, tap[7], acc);
       acc = fmaf(r2, tap[8], acc);
-      acc = ynt::activate(acc + bias, act_mid);
-      out[px * ldd] = ynt::to_float(ynt::from_float<T>(acc));
+      out[px * ldd] = ynt::activate(acc + bias, act_mid);
       l0 = m0, l1 = m1, l2 = m2;
       m0 = r0, m1 = r1, m2 = r2;
     }
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
-    fused_dw_pw_kernel(const T* __restrict__ x, const float* __restrict__ dw_w,
+    fused_dw_pw_kernel(const float* __restrict__ x,
+                       const float* __restrict__ dw_w,
                        const float* __restrict__ dw_b,
-                       const T* __restrict__ pw_w,
-                       const float* __restrict__ pw_b, T* __restrict__ out,
+                       const float* __restrict__ pw_w,
+                       const float* __restrict__ pw_b, float* __restrict__ out,
                        int B, int H, int W, int C, int Cout, int act_mid,
                        int act_out, int tw, int th, bool vec_in,
                        bool vec_w, bool vec_out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout lay(tw, th, C, Cout, sizeof(T));
+  const Layout lay(tw, th, C, Cout);
   float* Ws = reinterpret_cast<float*>(smem);
   float* par = Ws + lay.w;  // depthwise taps [9][C], dw_b [C], pw_b [Cout]
   float* D = par + lay.par;
-  T* regions = reinterpret_cast<T*>(D + lay.d);
+  float* regions = D + lay.d;
   const int region_elems = lay.cells * lay.ldr;
   const int ldr = lay.ldr;
   const int ldd = lay.ldd;
@@ -207,10 +162,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   // the region of tile t (image, tile row, tile column) into buf: 16-byte
   // cp.async copies (zeros outside the image), or plain loads where x's
   // pixels are not 16-byte aligned
-  auto fill = [&](int t, T* buf) {
+  auto fill = [&](int t, float* buf) {
     const int oy0 = t % tiles_img / tiles_x * th - 1;
     const int ox0 = t % tiles_x * tw - 1;
-    const T* xn = x + static_cast<int64_t>(t / tiles_img) * H * W * C;
+    const float* xn = x + static_cast<int64_t>(t / tiles_img) * H * W * C;
     auto pixel = [&](int cy, int cx) -> int64_t {
       const int iy = oy0 + cy;
       const int ix = ox0 + cx;
@@ -219,18 +174,16 @@ __global__ void __launch_bounds__(kThreads, 1)
                  : -1;
     };
     if (vec_in) {
-      constexpr int kVec = 16 / sizeof(T);
-      for_each_cell(lay.cells, rw, C / kVec, [&](int cy, int cx, int v) {
+      for_each_cell(lay.cells, rw, C / 4, [&](int cy, int cx, int v) {
         const int64_t q = pixel(cy, cx);
-        ynt::mma_tf32::cp_async_zfill<16>(
-            buf + (cy * rw + cx) * ldr + v * kVec,
-            q >= 0 ? xn + q + v * kVec : xn, q >= 0);
+        ynt::mma_tf32::cp_async_zfill<16>(buf + (cy * rw + cx) * ldr + v * 4,
+                                          q >= 0 ? xn + q + v * 4 : xn,
+                                          q >= 0);
       });
     } else {
       for_each_cell(lay.cells, rw, C, [&](int cy, int cx, int c) {
         const int64_t q = pixel(cy, cx);
-        buf[(cy * rw + cx) * ldr + c] =
-            q >= 0 ? xn[q + c] : ynt::from_float<T>(0.f);
+        buf[(cy * rw + cx) * ldr + c] = q >= 0 ? xn[q + c] : 0.f;
       });
     }
     ynt::mma_tf32::cp_async_commit();
@@ -239,7 +192,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   int t = blockIdx.x;
   if (t < tiles) fill(t, regions);
   // the weights, taps and biases, once per block, while the first region
-  // arrives: f32 weights by 16-byte cp.async where Cout allows, zeros in the
+  // arrives: the weights by 16-byte cp.async where Cout allows, zeros in the
   // pad rows and columns
   const int kp = round_up(C, 8);
   const int np = round_up(Cout, 8);
@@ -255,8 +208,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int i = threadIdx.x; i < kp * np; i += blockDim.x) {
       const int k = i / np;
       const int o = i % np;
-      Ws[k * ldw + o] =
-          k < C && o < Cout ? ynt::to_float(pw_w[k * Cout + o]) : 0.f;
+      Ws[k * ldw + o] = k < C && o < Cout ? pw_w[k * Cout + o] : 0.f;
     }
   }
   ynt::mma_tf32::cp_async_commit();
@@ -265,7 +217,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                                               : pw_b[i - 10 * C];
 
   for (int it = 0; t < tiles; ++it, t += gridDim.x) {
-    const T* cur = regions + (it & 1) * region_elems;
+    const float* cur = regions + (it & 1) * region_elems;
     if (t + gridDim.x < tiles)
       fill(t + gridDim.x, regions + ((it + 1) & 1) * region_elems);
     else
@@ -276,8 +228,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     depthwise(cur, ldr, tw, th, C, par, par + 9 * C, act_mid, D, ldd);
     __syncthreads();
 
-    // f32: 3xTF32; bf16: one pass, exact on bf16 operands
-    ynt::mma_tf32::gemm<true, sizeof(T) == 4 ? 3 : 1>(
+    ynt::mma_tf32::gemm<true>(
         lay.P, C, Cout, D, ldd, Ws, nullptr, true,
         [&](int m, int n, float v) {
           D[m * ldd + n] = ynt::activate(v + par[10 * C + n], act_out);
@@ -286,15 +237,16 @@ __global__ void __launch_bounds__(kThreads, 1)
 
     const int oy0 = t % tiles_img / tiles_x * th;
     const int ox0 = t % tiles_x * tw;
-    T* on = out + static_cast<int64_t>(t / tiles_img) * H * W * Cout;
+    float* on = out + static_cast<int64_t>(t / tiles_img) * H * W * Cout;
     if (vec_out) {
-      constexpr int kVec = 16 / sizeof(T);
-      for_each_cell(lay.P, tw, Cout / kVec, [&](int py, int px, int v) {
+      for_each_cell(lay.P, tw, Cout / 4, [&](int py, int px, int v) {
         const int oy = oy0 + py;
         const int ox = ox0 + px;
         if (oy < H && ox < W)
-          store16(on + (static_cast<int64_t>(oy) * W + ox) * Cout + v * kVec,
-                  D + (py * tw + px) * ldd + v * kVec);
+          *reinterpret_cast<float4*>(
+              on + (static_cast<int64_t>(oy) * W + ox) * Cout + v * 4) =
+              *reinterpret_cast<const float4*>(D + (py * tw + px) * ldd +
+                                               v * 4);
       });
     } else {
       for (int i = threadIdx.x; i < lay.P * Cout; i += blockDim.x) {
@@ -303,26 +255,25 @@ __global__ void __launch_bounds__(kThreads, 1)
         const int oy = oy0 + p / tw;
         const int ox = ox0 + p % tw;
         if (oy < H && ox < W)
-          on[(static_cast<int64_t>(oy) * W + ox) * Cout + c] =
-              ynt::from_float<T>(D[p * ldd + c]);
+          on[(static_cast<int64_t>(oy) * W + ox) * Cout + c] = D[p * ldd + c];
       }
     }
     // D is next written after the barrier that follows the next wait
   }
 }
 
-template <typename T>
-int launch(const T* x, const float* dw_w, const float* dw_b, const T* pw_w,
-           const float* pw_b, T* out, int B, int H, int W, int C, int Cout,
-           int act_mid, int act_out, int tw, int th, cudaStream_t stream) {
+int launch(const float* x, const float* dw_w, const float* dw_b,
+           const float* pw_w, const float* pw_b, float* out, int B, int H,
+           int W, int C, int Cout, int act_mid, int act_out, int tw, int th,
+           cudaStream_t stream) {
   // mma_tf32::gemm's warps cover N = Cout up to kWarps * kNTW * 8 = 512
   if (tw < 1 || th < 1 || C < 1 ||
       round_up(Cout, 8) > ynt::mma_tf32::kWarps * ynt::mma_tf32::kNTW * 8)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = Layout(tw, th, C, Cout, sizeof(T)).bytes();
+  const size_t smem = Layout(tw, th, C, Cout).bytes();
   if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_dw_pw_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fused_dw_pw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   int device = 0, sms = 0;
@@ -334,15 +285,13 @@ int launch(const T* x, const float* dw_w, const float* dw_b, const T* pw_w,
   const int64_t tiles = static_cast<int64_t>(B) * ((H + th - 1) / th) *
                         ((W + tw - 1) / tw);
   if (tiles > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int kVec = 16 / sizeof(T);
-  const bool vec_in =
-      C % kVec == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  const bool vec_w = sizeof(T) == 4 && Cout % 4 == 0 &&
-                     reinterpret_cast<uintptr_t>(pw_w) % 16 == 0;
+  const bool vec_in = C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const bool vec_w =
+      Cout % 4 == 0 && reinterpret_cast<uintptr_t>(pw_w) % 16 == 0;
   const bool vec_out =
-      Cout % kVec == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+      Cout % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const int grid = static_cast<int>(tiles < sms ? tiles : sms);
-  fused_dw_pw_kernel<T><<<grid, kThreads, smem, stream>>>(
+  fused_dw_pw_kernel<<<grid, kThreads, smem, stream>>>(
       x, dw_w, dw_b, pw_w, pw_b, out, B, H, W, C, Cout, act_mid, act_out, tw,
       th, vec_in, vec_w, vec_out);
   return static_cast<int>(cudaGetLastError());
@@ -371,10 +320,9 @@ double dw_pw_tile_cost(int tw, int th, int B, int H, int W, int Cout) {
 
 }  // namespace
 
-// Shared memory of one thread block, in bytes; elem is x's element size.
-extern "C" size_t fused_dw_pw_smem_bytes(int tw, int th, int C, int Cout,
-                                         int elem) {
-  return Layout(tw, th, C, Cout, elem).bytes();
+// Shared memory of one thread block, in bytes.
+extern "C" size_t fused_dw_pw_smem_bytes(int tw, int th, int C, int Cout) {
+  return Layout(tw, th, C, Cout).bytes();
 }
 
 // Output tile (tw columns x th rows) of one launch: of the tiles up to
@@ -382,12 +330,12 @@ extern "C" size_t fused_dw_pw_smem_bytes(int tw, int th, int C, int Cout,
 // of least dw_pw_tile_cost (the first found on a tie, in order of tw, then
 // th). Returns 0 and leaves tw, th alone if none fits.
 extern "C" int fused_dw_pw_tile(int B, int H, int W, int C, int Cout,
-                                int elem, int* tw, int* th) {
+                                int* tw, int* th) {
   double best = 0.0;
   int found = 0;
   for (int w = 1; w <= 64 && w <= W; ++w) {
     for (int h = 1; h <= 64 && h <= H; ++h) {
-      if (Layout(w, h, C, Cout, elem).bytes() > kSmemMax) continue;
+      if (Layout(w, h, C, Cout).bytes() > kSmemMax) continue;
       const double cost = dw_pw_tile_cost(w, h, B, H, W, Cout);
       if (!found || cost < best) {
         found = 1;
@@ -400,31 +348,17 @@ extern "C" int fused_dw_pw_tile(int B, int H, int W, int C, int Cout,
   return found;
 }
 
-// x [B,H,W,C] -> out [B,H,W,Cout], NHWC in x's dtype; dw_w [3,3,C],
-// dw_b [C], pw_b [Cout] f32; pw_w [C,Cout] in x's dtype. One persistent
-// block per SM walks the tw x th output tiles.
+// x [B,H,W,C] -> out [B,H,W,Cout], NHWC, all f32; dw_w [3,3,C], dw_b [C],
+// pw_w [C,Cout], pw_b [Cout]. One persistent block per SM walks the tw x th
+// output tiles.
 extern "C" int fused_dw_pw_f32(const void* x, const void* dw_w,
                                const void* dw_b, const void* pw_w,
                                const void* pw_b, void* out, int B, int H,
                                int W, int C, int Cout, int act_mid,
                                int act_out, int tw, int th, void* stream) {
-  return launch<float>(
+  return launch(
       static_cast<const float*>(x), static_cast<const float*>(dw_w),
       static_cast<const float*>(dw_b), static_cast<const float*>(pw_w),
       static_cast<const float*>(pw_b), static_cast<float*>(out), B, H, W, C,
       Cout, act_mid, act_out, tw, th, static_cast<cudaStream_t>(stream));
-}
-
-extern "C" int fused_dw_pw_bf16(const void* x, const void* dw_w,
-                                const void* dw_b, const void* pw_w,
-                                const void* pw_b, void* out, int B, int H,
-                                int W, int C, int Cout, int act_mid,
-                                int act_out, int tw, int th, void* stream) {
-  return launch<__nv_bfloat16>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const float*>(dw_w),
-      static_cast<const float*>(dw_b),
-      static_cast<const __nv_bfloat16*>(pw_w),
-      static_cast<const float*>(pw_b), static_cast<__nv_bfloat16*>(out), B,
-      H, W, C, Cout, act_mid, act_out, tw, th,
-      static_cast<cudaStream_t>(stream));
 }

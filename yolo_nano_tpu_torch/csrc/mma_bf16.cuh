@@ -1,6 +1,7 @@
 // bf16 tile products on the tensor cores (mma.sync m16n8k16, bf16 operands,
 // f32 sums), for Hopper (sm_90a); used by fused_stage_bf16.cu for every
-// pointwise (1x1) product of the bf16 ShuffleV2 block.
+// pointwise (1x1) product of the bf16 ShuffleV2 block, and by
+// fused_dw_pw_bf16.cu for the heads' pointwise products.
 //
 // One product: out[m][n] = sum_k A[m][k] * W[k][n], m < M, n < N, with
 //   - A: bf16 activations in shared memory, rows16(M) rows at row stride
@@ -17,10 +18,11 @@
 //   - bias [N] f32 and rows [M] int in shared memory: each thread loads the
 //     bias of its columns once, and each row's entry once a round, before
 //     the round's epilogue stores anything (a load after the epilogue's
-//     stores would wait on them);
+//     stores would wait on them); rows may be null (the entries are then 0);
 //   - an epilogue functor epi(m, rows[m], n, v0, v1) called once for each
 //     m < M and each even n < N with the sums of columns n and n + 1 plus
-//     their bias (N is even).
+//     their bias (for an odd N, column N is read from bias[N] and W's zero
+//     pad row, and the epilogue drops it).
 //
 // A fragments come by ldmatrix.x4 from the bf16 rows, B fragments by 32-bit
 // loads of Wt's rows (a row stride of 4 mod 8 words puts the 32 loads of a
@@ -280,7 +282,7 @@ __device__ __forceinline__ void gemm(int M, int K, int N, const bf16* A,
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         const int m = (mt_warp + i) * 16 + g + h * 8;
-        tag[i][h] = m < M ? rows[m] : 0;
+        tag[i][h] = m < M && rows ? rows[m] : 0;
       }
 #pragma unroll
     for (int i = 0; i < kWM; ++i) {

@@ -18,11 +18,7 @@
 // Precision: each operand x is split into hi = tf32(x) and lo = tf32(x - hi)
 // (rounded as cvt.rna), and each k-step of 8 is summed as
 // a_lo*b_hi + a_hi*b_lo + a_hi*b_hi. The dropped a_lo*b_lo term is below
-// 2^-22 of |a*b|; a single TF32 pass keeps about 3 decimal digits. Operands
-// already exact in TF32 (bf16 values: 7 mantissa bits) take PASSES = 1, the
-// a_hi*b_hi pass alone, which is then exact: a bf16 product, for which A
-// holds bf16 values and W's f32 values are rounded to bf16 (to nearest even),
-// as a bf16 product rounds its weights (a no-op on bf16 weights). The three
+// 2^-22 of |a*b|; a single TF32 pass keeps about 3 decimal digits. The three
 // passes of a k-step accumulate on the tensor core into a fresh zero, and
 // that sum is added to the running f32 sum on the CUDA cores: the tensor
 // core rounds its sum toward zero at the scale of its largest addend, so
@@ -90,11 +86,6 @@ __device__ __forceinline__ uint32_t to_tf32(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
-// x rounded to bf16 (to nearest even, as __float2bfloat16), as f32 bits.
-__device__ __forceinline__ uint32_t to_bf16(float x) {
-  return __float_as_uint(__bfloat162float(__float2bfloat16(x)));
-}
-
 __device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
   hi = to_tf32(x);
   lo = to_tf32(x - __uint_as_float(hi));
@@ -160,12 +151,11 @@ __device__ __forceinline__ void prefetch(int K, int N, const float* W,
 // RESIDENT the caller has synchronised after writing A and W. It
 // synchronises before each epilogue. A caller that reads what epi wrote to
 // shared memory synchronises first.
-template <bool RESIDENT = false, int PASSES = 3, typename Epi>
+template <bool RESIDENT = false, typename Epi>
 __device__ __forceinline__ void gemm(int M, int K, int N,
                                      const float* A, int lda,
                                      const float* __restrict__ W,
                                      float* wbuf, bool prefetched, Epi epi) {
-  static_assert(PASSES == 1 || PASSES == 3, "1 or 3 TF32 passes");
   const int kp = round_up(K, 8);
   const int np = round_up(N, 8);
   const int ldw = w_stride(N);
@@ -244,21 +234,13 @@ __device__ __forceinline__ void gemm(int M, int K, int N,
 #pragma unroll
             for (int i = 0; i < kWM; ++i)
 #pragma unroll
-              for (int e = 0; e < 4; ++e) {
-                if (PASSES == 3)
-                  split(a_raw[i][e], a_hi[i][e], a_lo[i][e]);
-                else
-                  a_hi[i][e] = to_tf32(a_raw[i][e]);
-              }
+              for (int e = 0; e < 4; ++e)
+                split(a_raw[i][e], a_hi[i][e], a_lo[i][e]);
 #pragma unroll
             for (int j = 0; j < kNTW; ++j)
 #pragma unroll
-              for (int e = 0; e < 2; ++e) {
-                if (PASSES == 3)
-                  split(b_raw[j][e], b_hi[j][e], b_lo[j][e]);
-                else
-                  b_hi[j][e] = to_bf16(b_raw[j][e]);
-              }
+              for (int e = 0; e < 2; ++e)
+                split(b_raw[j][e], b_hi[j][e], b_lo[j][e]);
             if (ks + 1 < ksteps) load(ks + 1);
             // small terms first, into a fresh zero; then one f32 add
 #pragma unroll
@@ -267,10 +249,8 @@ __device__ __forceinline__ void gemm(int M, int K, int N,
               for (int j = 0; j < kNTW; ++j)
                 if (j < n_tiles && mt_warp + i < mt_all) {
                   float d[4] = {0.f, 0.f, 0.f, 0.f};
-                  if (PASSES == 3) {
-                    mma(d, a_lo[i], b_hi[j][0], b_hi[j][1]);
-                    mma(d, a_hi[i], b_lo[j][0], b_lo[j][1]);
-                  }
+                  mma(d, a_lo[i], b_hi[j][0], b_hi[j][1]);
+                  mma(d, a_hi[i], b_lo[j][0], b_lo[j][1]);
                   mma(d, a_hi[i], b_hi[j][0], b_hi[j][1]);
 #pragma unroll
                   for (int e = 0; e < 4; ++e) acc[i][j][e] += d[e];

@@ -1,5 +1,6 @@
-"""Fused depthwise-3×3 → act → pointwise-1×1 → act: the CUDA kernel
-`csrc/fused_dw_pw.cu` and its plain PyTorch version.
+"""Fused depthwise-3×3 → act → pointwise-1×1 → act: two CUDA kernels,
+`csrc/fused_dw_pw.cu` (f32) and `csrc/fused_dw_pw_bf16.cu` (bf16), and
+their plain PyTorch version.
 
 Same function as the JAX package's Pallas `fused_dw_pw`:
     out = act_out(act_mid(dw3×3(x, pad 1) + dw_b) @ pw_w + pw_b)
@@ -7,19 +8,22 @@ with the depthwise taps summed in f32, the pointwise product taken in x's
 dtype with f32 accumulation, and the output in x's dtype. It runs the two
 dw→pw pairs of every detection head on a folded model.
 
-The kernel runs the pointwise product on the tensor cores (3×TF32
-`mma.sync` in f32, one exact TF32 pass in bf16, `csrc/mma_tf32.cuh`) with
-the weights resident in shared memory, and a persistent block per SM
-prefetches the next tile's input region while the current tile computes.
-It sums in another order than cuDNN: within 1e-4·max|ref| + 1e-5 of the
-plain version in f32. The output tile is the kernel's own pick
-(`tile_shape`).
+Both kernels run the pointwise product on the tensor cores with the
+weights resident in shared memory, and prefetch the next tile's input
+region while the current tile computes. The f32 kernel takes 3×TF32
+`mma.sync` (`csrc/mma_tf32.cuh`), one persistent block per SM, and sums in
+another order than cuDNN: within 1e-4·max|ref| + 1e-5 of the plain version.
+The bf16 kernel keeps bf16 in shared memory and takes native bf16
+`mma.sync` (`csrc/mma_bf16.cuh`), two persistent blocks per SM; it rounds
+where the plain version rounds, each from its own f32 sum order: within an
+ulp of max|ref| and nearly all bit-equal. Each kernel picks its own output
+tile (`tile_shape`).
 
 Layouts: x is [B, C, H, W] in channels_last memory (NHWC bytes); the weights
 keep the JAX kernel's layouts: dw_w [3, 3, C] f32, dw_b [C] f32,
-pw_w [C, Cout] in x's dtype, pw_b [Cout] f32. The kernel zero-pads the
-pointwise weights to multiples of 8 in shared memory, so any C and Cout up
-to 512 whose weights fit there are taken as they are.
+pw_w [C, Cout] in x's dtype, pw_b [Cout] f32. The kernels zero-pad the
+pointwise weights in shared memory (the bf16 one transposes them there), so
+any C and Cout up to 512 whose weights fit there are taken as they are.
 
 A call is one call of the PyTorch operator `torch.ops.yolo_nano_torch.dw_pw`:
 its CPU implementation is the plain version, its CUDA implementation the
@@ -36,32 +40,45 @@ import torch
 import torch.nn.functional as F
 
 from yolo_nano_tpu_torch.ops.kernels.build import check, load
+from yolo_nano_tpu_torch.ops.kernels.fused_stage import round_to
 from yolo_nano_tpu_torch.ops.nn import activate
 
 ACT_CODES = {None: 0, "relu": 1, "leaky": 2}
 ACT_NAMES = {v: k for k, v in ACT_CODES.items()}
-_SYMBOLS = {torch.float32: "fused_dw_pw_f32", torch.bfloat16: "fused_dw_pw_bf16"}
-COUT_MAX = 512  # the gemm's 16 warps cover at most 64 n8 tiles
+# each dtype's kernel source (a library of its own), also the prefix of its
+# tile rule and layout, <source>_tile and <source>_smem_bytes; and the
+# symbol that launches it
+_SOURCES = {torch.float32: "fused_dw_pw", torch.bfloat16: "fused_dw_pw_bf16"}
+_LAUNCH = {torch.float32: "fused_dw_pw_f32",
+           torch.bfloat16: "fused_dw_pw_bf16"}
+# f32: the gemm's 16 warps cover at most 64 n8 tiles; bf16: 8 warps of at
+# most 8 n8 tiles (4 up to Cout = 256)
+COUT_MAX = 512
 
 
 def fused_dw_pw_plain(x, dw_w, dw_b, pw_w, pw_b, *,
                       act_mid: Optional[str] = "leaky",
-                      act_out: Optional[str] = "leaky") -> torch.Tensor:
-    """Plain PyTorch version: the CPU path and the kernel's oracle."""
+                      act_out: Optional[str] = "leaky",
+                      wide=None) -> torch.Tensor:
+    """Plain PyTorch version: the CPU path and the kernel's oracle. Each op
+    is computed in `wide` (by default f32, f64 for f64 x) and rounded to
+    x's dtype where the function rounds: the mid activation and the
+    pointwise weights (the product's operands), and the output.
+    chip_smoke.py runs a bf16 pair with wide = f64 as the witness of its
+    sums: nearly exact sums, rounded where the function rounds."""
+    dt = x.dtype
+    wide = wide or torch.promote_types(dt, torch.float32)
     c = x.shape[1]
-    y = F.conv2d(x.float(), dw_w.permute(2, 0, 1).unsqueeze(1), dw_b,
-                 padding=1, groups=c)
-    y = activate(y, act_mid)
-    # the pointwise product runs in x's dtype with f32 accumulation: round
-    # both operands to x's dtype, then multiply-accumulate in f32
-    y = y.to(x.dtype).float()
-    w = pw_w.to(x.dtype).float().t()[:, :, None, None]
-    y = activate(F.conv2d(y, w, pw_b), act_out)
-    return y.to(x.dtype).contiguous(memory_format=torch.channels_last)
+    y = F.conv2d(x.to(wide), dw_w.to(wide).permute(2, 0, 1).unsqueeze(1),
+                 dw_b.to(wide), padding=1, groups=c)
+    y = round_to(activate(y, act_mid), dt).to(wide)
+    w = round_to(pw_w, dt).to(wide).t()[:, :, None, None]
+    y = activate(F.conv2d(y, w, pw_b.to(wide)), act_out)
+    return round_to(y, dt).contiguous(memory_format=torch.channels_last)
 
 
 def _check(x, dw_w, dw_b, pw_w, pw_b):
-    if x.dim() != 4 or x.dtype not in _SYMBOLS:
+    if x.dim() != 4 or x.dtype not in _SOURCES:
         raise ValueError(f"x must be [B,C,H,W] f32 or bf16, got "
                          f"{tuple(x.shape)} {x.dtype}")
     c = x.shape[1]
@@ -79,34 +96,48 @@ def _check(x, dw_w, dw_b, pw_w, pw_b):
 
 
 @functools.lru_cache(maxsize=None)
-def _lib():
-    """The built kernel: fused_dw_pw_{f32,bf16} launch it;
-    fused_dw_pw_tile and fused_dw_pw_smem_bytes are its tile rule and
-    shared-memory layout, computed on the host."""
-    lib = load("fused_dw_pw")
-    for sym in _SYMBOLS.values():
-        fn = getattr(lib, sym)
-        fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
-            ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    lib.fused_dw_pw_tile.argtypes = [ctypes.c_int] * 6 + [
+def _lib(dtype=torch.float32):
+    """The built kernel of a dtype: `_LAUNCH[dtype]` launches it;
+    <source>_tile and <source>_smem_bytes are its tile rule and
+    shared-memory layout, computed on the host. The bf16 kernel also
+    exports fused_dw_pw_bf16_blocks_per_sm, the occupancy its tile rule
+    weighs."""
+    source = _SOURCES[dtype]
+    lib = load(source)
+    fn = getattr(lib, _LAUNCH[dtype])
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    getattr(lib, source + "_tile").argtypes = [ctypes.c_int] * 5 + [
         ctypes.POINTER(ctypes.c_int)] * 2
-    lib.fused_dw_pw_tile.restype = ctypes.c_int
-    lib.fused_dw_pw_smem_bytes.argtypes = [ctypes.c_int] * 5
-    lib.fused_dw_pw_smem_bytes.restype = ctypes.c_size_t
+    getattr(lib, source + "_tile").restype = ctypes.c_int
+    getattr(lib, source + "_smem_bytes").argtypes = [ctypes.c_int] * 4
+    getattr(lib, source + "_smem_bytes").restype = ctypes.c_size_t
+    if dtype == torch.bfloat16:
+        lib.fused_dw_pw_bf16_blocks_per_sm.argtypes = [ctypes.c_int] * 4
+        lib.fused_dw_pw_bf16_blocks_per_sm.restype = ctypes.c_int
     return lib
+
+
+def smem_bytes(tw: int, th: int, c: int, cout: int, dtype) -> int:
+    """Shared memory of one block of the dtype's kernel at this tile."""
+    return getattr(_lib(dtype), _SOURCES[dtype] + "_smem_bytes")(
+        tw, th, c, cout)
 
 
 @functools.lru_cache(maxsize=None)
 def tile_shape(batch: int, h: int, w: int, c: int, cout: int,
                elem_bytes: int) -> Tuple[int, int]:
-    """(columns, rows) of the kernel's output tile, as its fused_dw_pw_tile
-    picks it (csrc/fused_dw_pw.cu: a cost model of gemm rounds, region
-    cells and tiles per SM, among the tiles whose shared memory fits).
-    chip_smoke.py --sweep-dw-pw-tiles times tiles against it."""
+    """(columns, rows) of the output tile of the kernel of this element
+    size, as its tile rule picks it among the tiles whose shared memory
+    fits: f32, fused_dw_pw_tile (csrc/fused_dw_pw.cu: gemm rounds, region
+    cells and tiles per SM); bf16, fused_dw_pw_bf16_tile
+    (csrc/fused_dw_pw_bf16.cu: the same with the blocks an SM holds).
+    chip_smoke.py --sweep-dw-pw-tiles times tiles against both."""
+    dtype = {4: torch.float32, 2: torch.bfloat16}[elem_bytes]
     tw, th = ctypes.c_int(), ctypes.c_int()
-    if not _lib().fused_dw_pw_tile(batch, h, w, c, cout, elem_bytes,
-                                   ctypes.byref(tw), ctypes.byref(th)):
+    rule = getattr(_lib(dtype), _SOURCES[dtype] + "_tile")
+    if not rule(batch, h, w, c, cout, ctypes.byref(tw), ctypes.byref(th)):
         raise ValueError(f"fused_dw_pw: the weights of C {c}, Cout {cout} "
                          f"and the smallest tile do not fit in shared memory")
     return tw.value, th.value
@@ -126,7 +157,7 @@ def _launch(x, dw_w, dw_b, pw_w, pw_b, act_mid, act_out, tile=None):
         return out
     if tile is None:
         tile = tile_shape(b, h, w, c, cout, x.element_size())
-    fn = getattr(_lib(), _SYMBOLS[x.dtype])
+    fn = getattr(_lib(x.dtype), _LAUNCH[x.dtype])
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = fn(x.data_ptr(), dw_w.data_ptr(), dw_b.data_ptr(), pw_w.data_ptr(),
              pw_b.data_ptr(), out.data_ptr(), b, h, w, c, cout,

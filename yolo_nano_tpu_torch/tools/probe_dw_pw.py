@@ -1,24 +1,40 @@
 """Where fused_dw_pw's time goes, on the card.
 
     python -m yolo_nano_tpu_torch.tools.probe_dw_pw [--root CHECKOUT]
+        [--witness-against CHECKOUT]
 
 1. Times one checkout's fused_dw_pw (pair 0 of each head, f32, batch 32,
-   416 px) and fused_stage (stages 2-4; f32 on the 1.0x artifact, bf16 on
-   the 0.5x artifact) at the main path's shapes, two ways:
-   queued behind a device sleep (device time alone) and back to back (what
-   a caller enqueuing one launch after another sees, its host time
-   included when that is longer). --root times another checkout, e.g. the
-   parent commit unpacked with `git archive`, so both are timed alike.
-2. Builds a copy of this checkout's csrc/fused_dw_pw.cu with clock64()
-   probes at the barriers of the tile loop and prints the cycles per tile
-   of each phase (region wait, depthwise, product and epilogue, stores) and
-   of the block prologue (weights, first region), at each level's tile.
+   416 px), its bf16 launches on the 0.5x artifact's heads (both pairs of
+   each level: a forward's 6 launches, at batch 32 and 1 at 416 px and at
+   batch 8 at the TTA sizes 320 to 640 px) and fused_stage (stages 2-4;
+   f32 on the 1.0x artifact, bf16 on the 0.5x artifact) at the main path's
+   shapes, two ways: queued behind a device sleep (device time alone) and
+   back to back (what a caller enqueuing one launch after another sees,
+   its host time included when that is longer). --root times another
+   checkout, e.g. the parent commit unpacked with `git archive`, so both
+   are timed alike.
+2. Builds a copy of this checkout's csrc/fused_dw_pw.cu (f32) with
+   clock64() probes at the barriers of the tile loop and prints the cycles
+   per tile of each phase (region wait, depthwise, product and epilogue,
+   stores) and of the block prologue (weights, first region), at each
+   level's tile.
 3. Builds a copy of csrc/fused_stage_bf16.cu with clock64() probes at its
    barriers and %globaltimer at each block's start and end, and runs every
    block launch of the 0.5x artifact's bf16 stages at the tile the rule
    picks: per launch the span from the first block's start to the last
    block's end, a block's mean duration, the blocks resident on an SM on
    average over the span, and a block's mean cycles in each phase.
+4. The same for csrc/fused_dw_pw_bf16.cu at the 0.5x artifact's head
+   pairs, batch 32 and 1 at 416 px: a tile's cycles in the region wait,
+   the depthwise, the product and its epilogue, and the stores; a block's
+   prologue (weights, taps, first region); span, block duration and blocks
+   resident on an SM.
+--witness-against CHECKOUT builds CHECKOUT's csrc/fused_dw_pw.cu (one
+whose fused_dw_pw_bf16 symbol is the f32 template run with one TF32 pass,
+before fused_dw_pw_bf16.cu) and counts, on the same bf16 inputs at the 0.5x
+heads (batch 32, 416 px), the outputs of its bf16 launch and of this
+checkout's kernel that leave the witness (fused_dw_pw_plain with f64 sums,
+rounded where the function rounds), beside the plain version's count.
 
 Prints one JSON line per part. Needs an NVIDIA GPU and nvcc.
 """
@@ -44,6 +60,10 @@ NPZ_05X = os.path.join("yolo_nano_tpu_torch", "assets",
                        "bench_coco416_05x.npz")
 BATCH = 32
 LEVELS = (52, 26, 13)
+# (batch, size) of the bf16 head timings: the main path, batch 1, and the
+# TTA sizes at batch 8
+BF16_HEAD_SHAPES = ((32, 416), (1, 416)) + tuple(
+    (8, s) for s in range(320, 641, 32))
 
 # (anchor in fused_dw_pw.cu, text put after it); each anchor must occur once
 PROBES = (
@@ -128,6 +148,33 @@ STAGE_PROBES = (
      "    atomicAdd(&g_probe[5], t_end - g_start);\n"
      "    atomicAdd(&g_probe[6], 1ull);\n  }\n}\n"),
 )
+# (anchor in fused_dw_pw_bf16.cu, its replacement); each anchor occurs once.
+# g_probe: 0-3 the phases of a tile (PHASES), 4 tiles, 5 the prologue, 6 the
+# blocks' summed duration (ns), 7 blocks; g_time: first start, last end.
+BF16_PROBES = (
+    ('#include "mma_bf16.cuh"\n', STAGE_PROBES[0][1]),
+    ("  extern __shared__ __align__(16) unsigned char smem[];\n",
+     STAGE_PROBES[1][1]),
+    ("  for (int it = 0; t < tiles; ++it, t += gridDim.x) {\n",
+     "  STAMP(5);\n  for (int it = 0; t < tiles; ++it, t += gridDim.x) {\n"),
+    ("    __syncthreads();  // ... and the last tile's stores are done with D\n",
+     "    __syncthreads();  // ... and the last tile's stores are done with D\n"
+     "    STAMP(0);\n"),
+    ("    depthwise(cur, ldr, tw, th, C, par, par + 9 * C, act_mid, D, ldd);\n"
+     "    __syncthreads();\n",
+     "    depthwise(cur, ldr, tw, th, C, par, par + 9 * C, act_mid, D, ldd);\n"
+     "    __syncthreads();\n    STAMP(1);\n"),
+    ("        });\n    __syncthreads();\n",
+     "        });\n    __syncthreads();\n    STAMP(2);\n"),
+    ("    // D is next written after the barrier that follows the next wait\n"
+     "  }\n}\n",
+     "    STAMP(3);\n    if (threadIdx.x == 0) atomicAdd(&g_probe[4], 1ull);\n"
+     "  }\n  if (threadIdx.x == 0) {\n"
+     "    const unsigned long long t_end = globaltimer();\n"
+     "    atomicMax(&g_time[1], t_end);\n"
+     "    atomicAdd(&g_probe[6], t_end - g_start);\n"
+     "    atomicAdd(&g_probe[7], 1ull);\n  }\n}\n"),
+)
 STAGE_PROBE_READ = """
 extern "C" int read_probes(void* out) {
   cudaError_t e = cudaMemcpyFromSymbol(out, g_probe, sizeof(g_probe));
@@ -172,6 +219,19 @@ def head_inputs(model, gen):
         yield hw, (x, dw_w, dw_b, pw_w, pw_b)
 
 
+def bf16_head_calls(model, batch, size, seed=0):
+    """The 6 head-pair calls of a bf16 forward at this batch and size:
+    (level side, pair, args) on seeded bf16 inputs (the same in every
+    checkout)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    for level, hw in enumerate((size // 8, size // 16, size // 32)):
+        for pair, (dw_w, dw_b, pw_w, pw_b) in enumerate(
+                getattr(model, f"head{level}")._pairs()):
+            x = torch.randn(batch, hw, hw, pw_w.shape[0], device="cuda",
+                            generator=gen).to(torch.bfloat16)
+            yield hw, pair, (x.permute(0, 3, 1, 2), dw_w, dw_b, pw_w, pw_b)
+
+
 def time_checkout(root: str) -> dict:
     """Device and back-to-back ms of root's kernels (imported from root)."""
     sys.path.insert(0, root)
@@ -195,6 +255,12 @@ def time_checkout(root: str) -> dict:
                 for q in ("device_ms", "back_to_back_ms")}
         images = torch.randn(BATCH, 416, 416, 3, device="cuda", generator=gen)
         model05 = load_model(os.path.join(root, NPZ_05X))[0].cuda()
+        for batch, size in BF16_HEAD_SHAPES:
+            out[f"fused_dw_pw_bf16_05x_b{batch}_{size}"] = {
+                q: sum(time_ms(lambda: fused_dw_pw(*args), q == "device_ms")
+                       for _, _, args in bf16_head_calls(model05, batch,
+                                                         size))
+                for q in ("device_ms", "back_to_back_ms")}
         for tag, m, dtype in (("", model, torch.float32),
                               ("bf16_05x_", model05, torch.bfloat16)):
             bb = m.backbone
@@ -219,6 +285,29 @@ def time_checkout(root: str) -> dict:
     return out
 
 
+def _build_probed(source: str, probes, read: str, tmp: str) -> ctypes.CDLL:
+    """A copy of csrc/<source>.cu with each probe anchor replaced (each must
+    occur once) and `read` appended, built into tmp and loaded."""
+    from yolo_nano_tpu_torch.ops.kernels import build
+
+    src = (build.CSRC / f"{source}.cu").read_text()
+    for anchor, text in probes:
+        if src.count(anchor) != 1:
+            raise RuntimeError(f"probe anchor not found once: {anchor!r}")
+        src = src.replace(anchor, text)
+    for header in build.CSRC.glob("*.cuh"):
+        shutil.copy(header, tmp)
+    cu = os.path.join(tmp, f"{source}.cu")
+    with open(cu, "w") as f:
+        f.write(src + read)
+    lib_path = os.path.join(tmp, f"probed_{source}.so")
+    subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", lib_path, cu],
+                   check=True)
+    lib = ctypes.CDLL(lib_path)
+    lib.read_probes.argtypes = [ctypes.c_void_p]
+    return lib
+
+
 def probe_phases() -> dict:
     """Cycles per tile of each phase of this checkout's kernel."""
     from yolo_nano_tpu_torch.convert import load_model
@@ -228,24 +317,11 @@ def probe_phases() -> dict:
 
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
-        src = (build.CSRC / "fused_dw_pw.cu").read_text()
-        for anchor, text in PROBES:
-            if src.count(anchor) != 1:
-                raise RuntimeError(f"probe anchor not found once: {anchor!r}")
-            src = src.replace(anchor, anchor + text)
-        for header in build.CSRC.glob("*.cuh"):
-            shutil.copy(header, tmp)
-        cu = os.path.join(tmp, "fused_dw_pw.cu")
-        with open(cu, "w") as f:
-            f.write(src + PROBE_READ)
-        lib_path = os.path.join(tmp, "probed.so")
-        subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", lib_path,
-                        cu], check=True)
-        lib = ctypes.CDLL(lib_path)
+        lib = _build_probed("fused_dw_pw", [(a, a + t) for a, t in PROBES],
+                            PROBE_READ, tmp)
         launch = lib.fused_dw_pw_f32
         launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
             ctypes.c_void_p]
-        lib.read_probes.argtypes = [ctypes.c_void_p]
 
         set_full_f32()
         model = load_model(os.path.join(ROOT, NPZ))[0].cuda()
@@ -286,24 +362,11 @@ def probe_stage_bf16() -> dict:
 
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
-        src = (build.CSRC / "fused_stage_bf16.cu").read_text()
-        for anchor, text in STAGE_PROBES:
-            if src.count(anchor) != 1:
-                raise RuntimeError(f"probe anchor not found once: {anchor!r}")
-            src = src.replace(anchor, text)
-        for header in build.CSRC.glob("*.cuh"):
-            shutil.copy(header, tmp)
-        cu = os.path.join(tmp, "fused_stage_bf16.cu")
-        with open(cu, "w") as f:
-            f.write(src + STAGE_PROBE_READ)
-        lib_path = os.path.join(tmp, "probed_stage.so")
-        subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", lib_path,
-                        cu], check=True)
-        lib = ctypes.CDLL(lib_path)
+        lib = _build_probed("fused_stage_bf16", STAGE_PROBES,
+                            STAGE_PROBE_READ, tmp)
         launch = lib.shuffle_block_bf16
         launch.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
                            + [ctypes.c_void_p] * 11)
-        lib.read_probes.argtypes = [ctypes.c_void_p]
 
         model = load_model(os.path.join(ROOT, NPZ_05X))[0].cuda()
         gen = torch.Generator(device="cuda").manual_seed(0)
@@ -357,17 +420,149 @@ def probe_stage_bf16() -> dict:
         return out
 
 
+def probe_dw_pw_bf16() -> dict:
+    """Phases and block residency of this checkout's bf16 fused_dw_pw at
+    the 0.5x artifact's head pairs (pair 0 of each level), batch 32 and 1,
+    416 px, at the tile the rule picks."""
+    from yolo_nano_tpu_torch.convert import load_model
+    from yolo_nano_tpu_torch.ops.kernels import build
+    from yolo_nano_tpu_torch.ops.kernels.fused_conv import (_lib,
+                                                            tile_shape)
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        lib = _build_probed("fused_dw_pw_bf16", BF16_PROBES,
+                            STAGE_PROBE_READ, tmp)
+        launch = lib.fused_dw_pw_bf16
+        launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
+            ctypes.c_void_p]
+        occupancy = _lib(torch.bfloat16).fused_dw_pw_bf16_blocks_per_sm
+        model = load_model(os.path.join(ROOT, NPZ_05X))[0].cuda()
+        stream = torch.cuda.current_stream().cuda_stream
+        counts = np.zeros(10, np.uint64)
+        lib.read_probes(counts.ctypes.data)  # sets the start/end marks
+        out = {}
+        with torch.inference_mode():
+            for batch in (BATCH, 1):
+                for hw, pair, (x, dw_w, dw_b, pw_w, pw_b) in bf16_head_calls(
+                        model, batch, 416):
+                    if pair:
+                        continue
+                    c, cout = pw_w.shape
+                    tile = tile_shape(batch, hw, hw, c, cout, 2)
+                    y = torch.empty_like(x)
+                    rows = []
+                    for _ in range(4):
+                        err = launch(x.data_ptr(), dw_w.data_ptr(),
+                                     dw_b.data_ptr(), pw_w.data_ptr(),
+                                     pw_b.data_ptr(), y.data_ptr(), batch,
+                                     hw, hw, c, cout, 2, 2, *tile, stream)
+                        if err:
+                            raise RuntimeError(f"probed launch: {err}")
+                        torch.cuda.synchronize()
+                        if lib.read_probes(counts.ctypes.data):
+                            raise RuntimeError("reading the probes failed")
+                        rows.append(counts.astype(np.float64))
+                    k = np.mean(rows[1:], 0)  # the first warms up
+                    tiles, blocks, span_ns = k[4], k[7], k[9] - k[8]
+                    row = {p: k[i] / tiles for i, p in enumerate(PHASES)}
+                    row.update(tile=list(tile), tiles=int(tiles),
+                               blocks=int(blocks),
+                               prologue_per_block=k[5] / blocks,
+                               span_us=span_ns / 1e3,
+                               block_us=k[6] / blocks / 1e3,
+                               resident_per_sm=k[6] / span_ns / 132,
+                               blocks_per_sm_allowed=occupancy(*tile, c,
+                                                               cout))
+                    out[f"b{batch}_{hw}"] = row
+                    print(f"  bf16 b{batch} {hw}x{hw} tile {tile}: "
+                          f"{int(tiles)} tiles on {int(blocks)} blocks, span"
+                          f" {row['span_us']:.2f} us, block "
+                          f"{row['block_us']:.2f} us, "
+                          f"{row['resident_per_sm']:.2f} resident per SM ("
+                          f"{row['blocks_per_sm_allowed']} allowed); cycles "
+                          "per tile " + ", ".join(
+                              f"{p} {row[p]:.0f}" for p in PHASES)
+                          + f"; prologue {row['prologue_per_block']:.0f}")
+        return out
+
+
+def witness_against(old_root: str) -> dict:
+    """Outputs off the witness of old_root's bf16 fused_dw_pw launch (its
+    csrc/fused_dw_pw.cu, at its own tile rule's pick) and of this
+    checkout's kernel, on the same inputs: the 0.5x artifact's 6 head pairs
+    at batch 32, 416 px; the plain version's count beside them."""
+    from yolo_nano_tpu_torch.convert import load_model
+    from yolo_nano_tpu_torch.ops.kernels import build
+    from yolo_nano_tpu_torch.ops.kernels.fused_conv import (fused_dw_pw,
+                                                            fused_dw_pw_plain)
+
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build.BUILD_DIR) as tmp:
+        csrc = os.path.join(old_root, "yolo_nano_tpu_torch", "csrc")
+        lib_path = os.path.join(tmp, "old_fused_dw_pw.so")
+        subprocess.run([build.nvcc_path(), *build.NVCC_FLAGS, "-o", lib_path,
+                        os.path.join(csrc, "fused_dw_pw.cu")], check=True)
+        old = ctypes.CDLL(lib_path)
+        old.fused_dw_pw_bf16.argtypes = [ctypes.c_void_p] * 6 + [
+            ctypes.c_int] * 9 + [ctypes.c_void_p]
+        old.fused_dw_pw_tile.argtypes = [ctypes.c_int] * 6 + [
+            ctypes.POINTER(ctypes.c_int)] * 2
+        model = load_model(os.path.join(ROOT, NPZ_05X))[0].cuda()
+        stream = torch.cuda.current_stream().cuda_stream
+        counts = dict(old=0, new=0, plain=0, n=0)
+        with torch.inference_mode():
+            for hw, pair, args in bf16_head_calls(model, BATCH, 416):
+                x = args[0]
+                c, cout = args[3].shape
+                tw, th = ctypes.c_int(), ctypes.c_int()
+                if not old.fused_dw_pw_tile(BATCH, hw, hw, c, cout, 2,
+                                            ctypes.byref(tw),
+                                            ctypes.byref(th)):
+                    raise RuntimeError("the old tile rule found no tile")
+                got_old = torch.empty_like(x)
+                err = old.fused_dw_pw_bf16(
+                    *(t.data_ptr() for t in args), got_old.data_ptr(),
+                    BATCH, hw, hw, c, cout, 2, 2, tw.value, th.value, stream)
+                if err:
+                    raise RuntimeError(f"old launch: CUDA error {err}")
+                exact = fused_dw_pw_plain(*args, wide=torch.float64)
+                counts["old"] += int((got_old != exact).sum())
+                counts["new"] += int((fused_dw_pw(*args) != exact).sum())
+                counts["plain"] += int((fused_dw_pw_plain(*args) != exact
+                                        ).sum())
+                counts["n"] += exact.numel()
+        out = {f"{k}_off_f64_share": counts[k] / counts["n"]
+               for k in ("old", "new", "plain")}
+        out.update(counts, new_over_old=counts["new"] / counts["old"],
+                   old_root=old_root)
+        print(f"  off the f64-sum witness, 0.5x heads at batch {BATCH}: old "
+              f"{out['old_off_f64_share']:.6f}, new "
+              f"{out['new_off_f64_share']:.6f} ({out['new_over_old']:.3f}x"
+              f" the old), plain {out['plain_off_f64_share']:.6f}")
+        return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--root", default=ROOT,
                         help="checkout whose kernels to time (default: this)")
+    parser.add_argument("--witness-against", metavar="CHECKOUT",
+                        help="count the outputs off the witness of "
+                        "CHECKOUT's bf16 fused_dw_pw launch beside this "
+                        "checkout's kernel's, instead of parts 1 to 4")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("probe_dw_pw: no CUDA device")
+    if args.witness_against:
+        print(json.dumps(witness_against(os.path.abspath(
+            args.witness_against))))
+        return
     print(json.dumps(time_checkout(os.path.abspath(args.root))))
     if os.path.abspath(args.root) == ROOT:
         print(json.dumps(probe_phases()))
         print(json.dumps(probe_stage_bf16()))
+        print(json.dumps(probe_dw_pw_bf16()))
 
 
 if __name__ == "__main__":
