@@ -1,0 +1,13 @@
+"""The whole predict's share of the card's peak: the model's FLOPs an image
+(`counts.model_flops`) times the images of the traced window, over its
+seconds and the configuration dtype's peak (`counts.PEAK_FLOPS`)."""
+
+from benchmark import counts
+
+
+def read(ctx):
+    if not ctx.get("forwards") or not ctx["trace"].device:
+        return None
+    cfg = ctx["cell"].config
+    rate = counts.model_flops(cfg) * ctx["images"] / ctx["trace"].window_s
+    return 100.0 * rate / counts.PEAK_FLOPS[cfg["dtype"]]
