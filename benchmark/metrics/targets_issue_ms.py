@@ -1,0 +1,8 @@
+"""Host ms a step in the program's span `ynt.train.targets`
+(`TrainStep.__call__`): the enqueue of the step's targets phase."""
+
+from benchmark import spans
+
+
+def read(ctx):
+    return spans.span_ms(ctx, "ynt.train.targets")

@@ -324,3 +324,33 @@ def test_graph_path_sets_full_f32(artifacts):
     finally:
         torch.backends.cudnn.allow_tf32 = saved[0]
         torch.set_float32_matmul_precision(saved[2])
+
+
+def _call_targets(ep) -> Counter:
+    """The targets of the call nodes of the graph and its subgraphs (the
+    NMS loop's condition and body)."""
+    return Counter(str(n.target) for m in ep.graph_module.modules()
+                   if isinstance(m, torch.fx.GraphModule)
+                   for n in m.graph.nodes if n.op == "call_function")
+
+
+def test_export_under_a_profiler_adds_no_span(artifacts, tmp_path):
+    """The program's spans (`utils/spans.py`) leave the serving graph as it
+    is: exported while a profiler runs, it holds no profiler or
+    record_function node and the same call targets as without one."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from yolo_nano_tpu_torch.convert import load_model
+    from yolo_nano_tpu_torch.serving import export_graph
+
+    size = SIZES["bfloat16"]
+    model, cfg, _ = load_model(artifacts["bfloat16"])
+    plain = export_graph(model, cfg, size, "bfloat16",
+                         str(tmp_path / "plain.pt2"))
+    with profile(activities=[ProfilerActivity.CPU]):
+        traced = export_graph(model, cfg, size, "bfloat16",
+                              str(tmp_path / "traced.pt2"))
+    got = _call_targets(traced)
+    assert not [t for t in got if "profiler" in t or "record_function" in t]
+    assert got == _call_targets(plain)
+    assert got["while_loop"] == 1

@@ -35,6 +35,7 @@ from yolo_nano_tpu_torch.ops.nms import nms_on_candidates, stable_topk
 from yolo_nano_tpu_torch.ops.nn import (  # noqa: F401 (precision_flags)
     ConvUnit, downsample2x_nearest, init_bn, init_conv, precision_flags,
     set_full_f32, upsample2x_nearest)
+from yolo_nano_tpu_torch.utils.spans import span
 
 
 class Head(nn.Module):
@@ -101,7 +102,11 @@ class YoloNano(nn.Module):
 
     def forward(self, images: torch.Tensor):
         """images [B,H,W,3] → (conf [B,N,1], cls [B,N,C],
-        txtytwth [B,ΣHW,A,4])."""
+        txtytwth [B,ΣHW,A,4]); the span `ynt.forward`."""
+        with span("ynt.forward"):
+            return self._forward(images)
+
+    def _forward(self, images: torch.Tensor):
         a = self.cfg.num_anchors_per_level
         c = self.cfg.num_classes
         x = images.permute(0, 3, 1, 2)  # NHWC bytes = NCHW channels_last
@@ -168,10 +173,11 @@ def detect(model: YoloNano, images: torch.Tensor, cfg: YoloNanoConfig,
            input_size: int):
     """What `predict` runs, without its grad mode and precision flags:
     forward → scores → top-k → decode → NMS. `serving.export_graph` traces
-    it."""
+    it. The postprocess is the span `ynt.postprocess`."""
     conf_pred, cls_pred, txtytwth_pred = model(images)
-    score, cls = scores_from_features(conf_pred, cls_pred)
-    return postprocess_scored(txtytwth_pred, score, cls, cfg, input_size)
+    with span("ynt.postprocess"):
+        score, cls = scores_from_features(conf_pred, cls_pred)
+        return postprocess_scored(txtytwth_pred, score, cls, cfg, input_size)
 
 
 @torch.inference_mode()

@@ -16,6 +16,8 @@ from __future__ import annotations
 import torch
 from torch._higher_order_ops.while_loop import while_loop_op
 
+from yolo_nano_tpu_torch.utils.spans import span
+
 
 def stable_topk(x: torch.Tensor, k: int):
     """The k largest along the last dim, equal values in index order."""
@@ -62,9 +64,11 @@ def nms_greedy(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
     latest the (K+1)-th sweep finds no change; the port leaves the counter
     out (three operator calls a sweep). Eagerly the loop runs in Python
     and reads the condition on the host once per sweep (a few sweeps in
-    practice); when traced (torch.export in `serving.export_graph`, or
-    torch.compile) it is the `while_loop` operator, called directly: the
-    `while_loop` wrapper compiles it with dynamo on every new shape."""
+    practice; under a profiler each read is a span `ynt.nms.wait`, each
+    sweep a span `ynt.nms.sweep`); when traced (torch.export in
+    `serving.export_graph`, or torch.compile) it is the `while_loop`
+    operator, called directly: the `while_loop` wrapper compiles it with
+    dynamo on every new shape."""
     k = boxes.shape[-2]
     ovr = _pairwise_iou(boxes)
     if diou:
@@ -83,8 +87,12 @@ def nms_greedy(boxes: torch.Tensor, valid: torch.Tensor, iou_thresh: float,
     carried = (valid, valid.any())
     if torch.compiler.is_compiling():
         return while_loop_op(cond, body, carried, (valid, sup))[0]
-    while cond(*carried, valid, sup):  # what the operator runs eagerly
-        carried = body(*carried, valid, sup)
+    while True:  # what the operator runs eagerly
+        with span("ynt.nms.wait"):  # the host reads the flag off the device
+            if not cond(*carried, valid, sup):
+                break
+        with span("ynt.nms.sweep"):
+            carried = body(*carried, valid, sup)
     return carried[0]
 
 

@@ -25,6 +25,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from yolo_nano_tpu_torch.utils.spans import span
+
 
 def resolve_device(device=None) -> torch.device:
     """CUDA unless the caller names another device; no silent CPU fallback."""
@@ -79,9 +81,10 @@ def predictor(model, cfg, input_size: int, dev: torch.device,
     model_dev = next(model.parameters()).device  # "cuda" with its index
 
     def predict_fn(images):
-        x, on_device = take_images(images, model_dev, input_size)
-        return hand_back(predict(model, x.to(tdtype), cfg, input_size),
-                         on_device)
+        with span("ynt.predict"):
+            x, on_device = take_images(images, model_dev, input_size)
+            return hand_back(predict(model, x.to(tdtype), cfg, input_size),
+                             on_device)
 
     predict_fn.model = model
     predict_fn.cfg = cfg
@@ -221,11 +224,12 @@ def graph_predictor(path: str, cfg, input_size: int, dev: torch.device,
     graph_dev = next(iter(ep.state_dict.values())).device  # with its index
 
     def predict_fn(images):
-        x, on_device = take_images(images, graph_dev, input_size)
-        set_full_f32()
-        with torch.inference_mode():
-            out = module(*weights, x)
-        return hand_back(tuple(out), on_device)
+        with span("ynt.predict"):
+            x, on_device = take_images(images, graph_dev, input_size)
+            set_full_f32()
+            with torch.inference_mode():
+                out = module(*weights, x)
+            return hand_back(tuple(out), on_device)
 
     predict_fn.graph = ep
     predict_fn.cfg = cfg

@@ -38,6 +38,7 @@ from yolo_nano_tpu_torch.ops.nn import resize_images, sync_batch_norm
 from yolo_nano_tpu_torch.serving import resolve_device
 from yolo_nano_tpu_torch.train.state import (SGD, TrainState, ema_decay,
                                              ema_update, select)
+from yolo_nano_tpu_torch.utils.spans import span
 
 LOSS_NAMES = ("loss/obj", "loss/cls", "loss/bbox", "loss/iou")
 
@@ -48,7 +49,9 @@ class TrainStep:
     images [B,S,S,3] f32 NHWC, normalized, on the step's device (resized to
     `input_size` when S differs); gt_boxes [B,M,4] normalized corners;
     gt_labels [B,M] int (−1 pads). The parts are methods, so that each can
-    be timed alone.
+    be timed alone; under a profiler the step is the span `ynt.train.step`
+    and each part's call a span `ynt.train.<part>` inside it (`backward`
+    for the gradients).
 
     With `augment` (data.device_aug.make_augment_fn(input_size)) the step
     is step(state, images_u8, gt_boxes, gt_labels, regions, gen): uint8
@@ -133,20 +136,32 @@ class TrainStep:
 
     def __call__(self, state: TrainState, images, gt_boxes, gt_labels,
                  regions=None, gen=None):
+        with span("ynt.train.step"):
+            return self._step(state, images, gt_boxes, gt_labels, regions,
+                              gen)
+
+    def _step(self, state, images, gt_boxes, gt_labels, regions, gen):
         if self.augment is not None:
-            images, gt_boxes, gt_labels = self.augment(
-                images, gt_boxes, gt_labels, regions, gen)
+            with span("ynt.train.augment"):
+                images, gt_boxes, gt_labels = self.augment(
+                    images, gt_boxes, gt_labels, regions, gen)
         elif regions is not None or gen is not None:
             raise TypeError("regions and gen are the augmenting step's "
                             "arguments; this step was built without augment")
-        targets = self.targets(gt_boxes, gt_labels)
-        total, losses, params, new_stats = self.loss(state, images, targets)
-        grads = torch.autograd.grad(total, list(params.values()))
+        with span("ynt.train.targets"):
+            targets = self.targets(gt_boxes, gt_labels)
+        with span("ynt.train.loss"):
+            total, losses, params, new_stats = self.loss(state, images,
+                                                         targets)
+        with span("ynt.train.backward"):
+            grads = torch.autograd.grad(total, list(params.values()))
         total, losses = total.detach(), tuple(v.detach() for v in losses)
         if self.group is not None:
-            grads, total, losses = self.all_reduce(grads, total, losses)
-        new_state = self.update(state, total, dict(zip(params, grads)),
-                                new_stats)
+            with span("ynt.train.all_reduce"):
+                grads, total, losses = self.all_reduce(grads, total, losses)
+        with span("ynt.train.update"):
+            new_state = self.update(state, total, dict(zip(params, grads)),
+                                    new_stats)
         metrics = {"loss/total": total,
                    **dict(zip(LOSS_NAMES, losses)),
                    "skipped_nonfinite": (~torch.isfinite(total)).to(
