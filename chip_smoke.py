@@ -18,10 +18,13 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
      over 4x cuDNN f32's; each bf16 fused_dw_pw row is held in bf16 ulps of
      max|ref| and bit-equal share, and over the rows against the witness
      (f64 sums rounded where the function rounds: the share of outputs off
-     it);
+     it); then the NMS kernel against its plain version (the fixpoint
+     loop) on the candidates of predicts at the benchmark's detection
+     cells, at batch 32 and of TTA's merge (NMS_CASES): the keep sets bit
+     for bit, kernel µs, the loop's ms and the bound;
   3. the main path: load_predictor on the committed folded artifact, 32
      rendered scenes, serving and eval-strict operating points; checks the
-     kernel launch counts, the detections slot for slot against predict
+     kernel launch counts (one NMS launch a predict), the detections slot for slot against predict
      with the plain versions on the same card, the NMS candidate load;
      prints img/s and per-stage ms;
   4. training at the artifact's configuration (1.0x COCO, 416 px), batch
@@ -88,7 +91,8 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
      share, the heads also against the witness), with each shape's tiles,
      ms per forward and bound; one image
      at batch 1 against its row of a batch of 8, bit for bit; TTA on 8
-     scenes (22 x (16 + 6) launches, detections against the plain path's,
+     scenes (22 x (16 + 6) launches and 23 NMS launches, detections
+     against the plain path's,
      img/s); cli.eval --tta on phase 6's COCO set (the kernel path's AP
      equal to the plain path's within 1e-6); load_predictor with
      batch_buckets="auto" on ragged requests of 1, 5, 33 and 70 scenes,
@@ -668,6 +672,85 @@ def phase_fused_stage(model, images):
     return rows
 
 
+# f32 operations a second off the tensor cores (H100 SXM), and the SM clock
+# under load: the NMS kernel's bounds
+F32_FLOPS = 67e12
+SM_HZ = 1.98e9
+
+
+def nms_candidates(npz, batch, point, tta, images_np):
+    """The (boxes, valid, thresh, diou) of the last NMS call of a predict
+    on `batch` scenes (the 32 rendered ones repeated) at an operating
+    point: its own, or with tta the merge of tta_predictor's views."""
+    from yolo_nano_tpu_torch.ops import nms
+    from yolo_nano_tpu_torch.serving import load_predictor
+    from yolo_nano_tpu_torch.utils.tta import tta_predictor
+
+    fn = load_predictor(npz, **OPERATING_POINTS[point])
+    if tta:
+        fn = tta_predictor(fn.model, fn.cfg)
+    x = np.concatenate([images_np] * -(-batch // len(images_np)))[:batch]
+    seen, greedy = [], nms.nms_greedy
+
+    def spy(boxes, valid, iou_thresh, diou=False):
+        seen.append((boxes.clone(), valid.clone(), iou_thresh, diou))
+        return greedy(boxes, valid, iou_thresh, diou)
+
+    nms.nms_greedy = spy
+    try:
+        fn(x)
+    finally:
+        nms.nms_greedy = greedy
+    return seen[-1]
+
+
+def phase_nms(images_np):
+    """The NMS kernel against its plain version (the fixpoint loop) on the
+    card, on the candidates of each NMS_CASES predict: the keep sets bit
+    for bit, the kernel's device ms (queued), the loop's ms (its host
+    reads included) and the bound: the largest of its bytes over HBM, its
+    K^2 / 2 overlap tests of 20 f32 operations over F32_FLOPS, and its
+    sequential scan's latency (K + 30 cycles a kept candidate of the
+    image that keeps the most, at SM_HZ). → one row per case."""
+    from yolo_nano_tpu_torch.ops.kernels.nms_greedy import (nms_greedy,
+                                                            nms_greedy_plain)
+
+    print("[2] nms_greedy against its plain version (the fixpoint loop) on "
+          "each case's candidates")
+    rows = []
+    for label, npz, batch, point, tta in NMS_CASES:
+        boxes, valid, thresh, diou = nms_candidates(npz, batch, point, tta,
+                                                    images_np)
+        b, k = valid.shape
+        keep = nms_greedy(boxes, valid, thresh, diou)
+        want = nms_greedy_plain(boxes, valid, thresh, diou)
+        if not torch.equal(keep, want):
+            raise AssertionError(
+                f"[2] nms_greedy {label}, batch {b}, K {k}: "
+                f"{int((keep != want).sum())} keeps differ from the loop's")
+        kept_max = int(keep.sum(-1).max())
+        b_ms = dict(bytes=b * k * 18 / HBM_BYTES_PER_S * 1e3,
+                    operations=b * k * (k - 1) / 2 * 20 / F32_FLOPS * 1e3,
+                    scan=(k + 30 * kept_max) / SM_HZ * 1e3)
+        by = max(b_ms, key=b_ms.get)
+        row = dict(case=label, batch=b, k=k, thresh=thresh, diou=diou,
+                   valid_mean=float(valid.float().sum(-1).mean()),
+                   kept_mean=float(keep.float().sum(-1).mean()),
+                   kept_max=kept_max, equal=True,
+                   ms=time_ms(lambda: nms_greedy(boxes, valid, thresh, diou),
+                              iters=50, queued=True),
+                   plain_ms=time_ms(lambda: nms_greedy_plain(
+                       boxes, valid, thresh, diou), iters=5),
+                   bound_ms=b_ms[by], bound_by=by)
+        rows.append(row)
+        print(f"  {label}, batch {b}, K {k}: keep sets equal ("
+              f"{row['valid_mean']:.1f} valid, {row['kept_mean']:.1f} kept "
+              f"an image, at most {kept_max}); kernel {row['ms'] * 1e3:.2f} "
+              f"us, loop {row['plain_ms']:.3f} ms, bound "
+              f"{row['bound_ms'] * 1e3:.2f} us ({by})")
+    return rows
+
+
 def sweep_stage_tiles(model, x, label="f32"):
     """Every block launch of stages 2/3/4 at every tile side that fits, on
     the main path's activations x (the stage-2 input, f32 or bf16): kernel
@@ -726,47 +809,58 @@ def sweep_stage_tiles(model, x, label="f32"):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the model's kernel calls to their plain versions, for the
-    comparison run only."""
+    """Route the model's kernel calls and NMS to their plain versions, for
+    the comparison run only."""
     from yolo_nano_tpu_torch.models import shufflenetv2, yolo_nano
-    from yolo_nano_tpu_torch.ops.kernels import fused_conv, fused_stage
+    from yolo_nano_tpu_torch.ops import nms
+    from yolo_nano_tpu_torch.ops.kernels import (fused_conv, fused_stage,
+                                                 nms_greedy)
 
-    saved = shufflenetv2.fused_stage, yolo_nano.fused_dw_pw
+    saved = shufflenetv2.fused_stage, yolo_nano.fused_dw_pw, nms.nms_greedy
     shufflenetv2.fused_stage = fused_stage.fused_stage_plain
     yolo_nano.fused_dw_pw = fused_conv.fused_dw_pw_plain
+    nms.nms_greedy = nms_greedy.nms_greedy_plain
     try:
         yield
     finally:
-        shufflenetv2.fused_stage, yolo_nano.fused_dw_pw = saved
+        shufflenetv2.fused_stage, yolo_nano.fused_dw_pw, nms.nms_greedy = (
+            saved)
 
 
 def reset_counts():
     from yolo_nano_tpu_torch.ops.kernels.fused_conv import fused_dw_pw
     from yolo_nano_tpu_torch.ops.kernels.fused_stage import fused_stage
+    from yolo_nano_tpu_torch.ops.kernels.nms_greedy import nms_greedy
 
     fused_dw_pw.launches = fused_dw_pw.launches_bf16 = 0
     fused_stage.calls = 0
     fused_stage.launches = fused_stage.launches_bf16 = 0
+    nms_greedy.launches = 0
 
 
 def read_counts():
     from yolo_nano_tpu_torch.ops.kernels.fused_conv import fused_dw_pw
     from yolo_nano_tpu_torch.ops.kernels.fused_stage import fused_stage
+    from yolo_nano_tpu_torch.ops.kernels.nms_greedy import nms_greedy
 
     return dict(fused_dw_pw=fused_dw_pw.launches,
                 fused_dw_pw_bf16=fused_dw_pw.launches_bf16,
                 fused_stage_calls=fused_stage.calls,
                 fused_stage=fused_stage.launches,
-                fused_stage_bf16=fused_stage.launches_bf16)
+                fused_stage_bf16=fused_stage.launches_bf16,
+                nms_greedy=nms_greedy.launches)
 
 
-def want_counts(forwards: int, bf16: bool) -> dict:
+def want_counts(forwards: int, bf16: bool, nms: Optional[int] = None
+                ) -> dict:
     """Launches of `forwards` forwards: 16 stage blocks and 6 head pairs
-    each, all in bf16 or none."""
+    each, all in bf16 or none; and `nms` NMS launches, by default one a
+    forward (a predict's; TTA adds its merge, a candidate count has none)."""
     return dict(fused_dw_pw=6 * forwards,
                 fused_dw_pw_bf16=6 * forwards * bf16,
                 fused_stage_calls=3 * forwards, fused_stage=16 * forwards,
-                fused_stage_bf16=16 * forwards * bf16)
+                fused_stage_bf16=16 * forwards * bf16,
+                nms_greedy=forwards if nms is None else nms)
 
 
 def check_detections(point, got, plain, tol=1e-4, tie_rtol=0.0) -> int:
@@ -1831,7 +1925,8 @@ def watch_cli_eval(keep_images: bool = False):
         cli_eval.build_predict_fn, evaluator.EvalLoader = build, loader
 
 
-def run_cli_eval(tag: str, argv: list, bf16: bool, batches: int):
+def run_cli_eval(tag: str, argv: list, bf16: bool, batches: int,
+                 nms: Optional[int] = None):
     """cli.eval.main(argv) on the kernel path, timed and its launches
     counted, then on the plain path with its images kept. → (kernel
     evaluator, plain evaluator, the two runs' watches, a dict of the
@@ -1848,7 +1943,7 @@ def run_cli_eval(tag: str, argv: list, bf16: bool, batches: int):
         got = cli_eval.main(argv)
     end = time.perf_counter()
     counts = read_counts()
-    if counts != want_counts(batches, bf16=bf16):
+    if counts != want_counts(batches, bf16=bf16, nms=nms):
         raise AssertionError(f"{tag}: launch counts {counts}")
     with plain_kernels(), watch_cli_eval(keep_images=True) as plain_w:
         want = cli_eval.main(argv)
@@ -2352,6 +2447,17 @@ def phase_train_cli(voc_root: str, tmp: str, images_np, bare: dict) -> dict:
 TTA_SIZES = tuple(range(320, 641, 32))
 TTA_BATCH = 8
 TTA_VIEWS = 2 * len(TTA_SIZES)
+# the NMS kernel's cases: (label, artifact, batch, operating point, TTA):
+# the benchmark's detection cells, the main path's batch, and TTA's merge
+# (22 views of max_detections slots: K = 2,816, the kernel's chain design)
+# at the serving point and at eval-strict (cli.eval --tta)
+NMS_CASES = (("f32 serving", NPZ, 256, "serving", False),
+             ("f32 serving", NPZ, 128, "serving", False),
+             ("f32 main path", NPZ, BATCH, "serving", False),
+             ("bf16 serving", NPZ_05X, 128, "serving", False),
+             ("bf16 eval-strict", NPZ_05X, 128, "eval_strict", False),
+             ("f32 TTA serving", NPZ, TTA_BATCH, "serving", True),
+             ("f32 TTA eval-strict", NPZ, TTA_BATCH, "eval_strict", True))
 # ragged request sizes fed to the bucketed predictor, and the batch of the
 # unpadded run each image's detections are held to
 RAGGED = (1, 5, 33, 70)
@@ -2571,7 +2677,8 @@ def agree(tag, got, want, fn) -> dict:
 def phase_tta(images_np, npz):
     """tta_predictor on a folded artifact's model at the serving operating
     point, TTA_BATCH scenes: 22 forwards of 16 stage blocks and 6 head
-    pairs, detections against the plain path's, img/s."""
+    pairs, 23 NMS launches (each view's, then the merge), detections
+    against the plain path's, img/s."""
     from yolo_nano_tpu_torch.serving import load_predictor
     from yolo_nano_tpu_torch.utils.tta import tta_predictor
 
@@ -2583,9 +2690,9 @@ def phase_tta(images_np, npz):
     reset_counts()
     got = tta(x)
     counts = read_counts()
-    if counts != want_counts(TTA_VIEWS, bf16):
-        raise AssertionError(f"TTA launch counts {counts}, expected "
-                             f"{want_counts(TTA_VIEWS, bf16)}")
+    want = want_counts(TTA_VIEWS, bf16, nms=TTA_VIEWS + 1)
+    if counts != want:
+        raise AssertionError(f"TTA launch counts {counts}, expected {want}")
     with plain_kernels():
         plain = tta(x)
     out = agree(f"TTA {os.path.basename(npz)}", got, plain, fn)
@@ -2606,13 +2713,14 @@ def phase_tta(images_np, npz):
 def phase_cli_eval_tta(coco_root):
     """cli.eval.main --tta on phase 6's scenes (COCO layout) with the f32
     artifact: the kernel path's AP equal to the plain path's within
-    EVAL_F32_AP_ATOL; 22 forwards a batch."""
+    EVAL_F32_AP_ATOL; 22 forwards and 23 NMS launches a batch."""
     batches = -(-EVAL_IMAGES // BATCH)
     argv = ["-d", "coco-val", "--root", coco_root, "--img_size", str(SIZE),
             "--batch_size", str(BATCH), "--weight", NPZ, "--tta"]
     print(f"[8] cli.eval --tta on the f32 artifact, {EVAL_IMAGES} scenes")
     got, want, _, t = run_cli_eval("f32 artifact --tta", argv, False,
-                                   batches * TTA_VIEWS)
+                                   batches * TTA_VIEWS,
+                                   nms=batches * (TTA_VIEWS + 1))
     gap = ap_close("f32 artifact --tta", got.stats, want.stats,
                    EVAL_F32_AP_ATOL)
     return dict(t, ap_gap=gap, stats=got.stats, plain_stats=want.stats)
@@ -2670,16 +2778,16 @@ def phase_buckets(images_np, npz):
 
 
 @contextlib.contextmanager
-def counted(what: str, forwards: int, bf16: bool):
+def counted(what: str, forwards: int, bf16: bool, nms: Optional[int] = None):
     """Launch counts of the block's run, which must be `forwards` forwards
-    (want_counts); → a dict that receives them."""
+    and `nms` NMS launches (want_counts); → a dict that receives them."""
     got = {}
     reset_counts()
     yield got
     got.update(read_counts())
-    if got != want_counts(forwards, bf16):
+    if got != want_counts(forwards, bf16, nms):
         raise AssertionError(f"{what}: launch counts {got}, expected "
-                             f"{want_counts(forwards, bf16)}")
+                             f"{want_counts(forwards, bf16, nms)}")
 
 
 def phase_cli_tools(tmp, coco_root):
@@ -2708,7 +2816,8 @@ def phase_cli_tools(tmp, coco_root):
         bf16 = npz == NPZ_05X
         t0 = time.perf_counter()
         with counted(f"cli.test {key}",
-                     TEST_IMAGES * (TTA_VIEWS if tta else 1), bf16) as c:
+                     TEST_IMAGES * (TTA_VIEWS if tta else 1), bf16,
+                     TEST_IMAGES * (TTA_VIEWS + 1 if tta else 1)) as c:
             n = cli_test.main(["-d", "coco", "--root", coco_root, "--weight",
                                npz, "--num_images", str(TEST_IMAGES),
                                "--save_folder", dst]
@@ -2765,10 +2874,11 @@ def phase_cli_tools(tmp, coco_root):
                                     "--dtype", dtype, "--iters",
                                     str(BENCH_ITERS), "--reference_protocol"])
         counts = read_counts()
-        # the candidate count, the warm-up, the loop, 10 p50 calls, the
-        # reference protocol's warm-up and 102 calls
+        # the candidate count (forwards alone), the warm-up, the loop, 10
+        # p50 calls, the reference protocol's warm-up and 102 calls
         forwards = r["device_batches"] + 1 + BENCH_ITERS + 10 + 103
-        if counts != want_counts(forwards, dtype == "bfloat16"):
+        if counts != want_counts(forwards, dtype == "bfloat16",
+                                 forwards - r["device_batches"]):
             raise AssertionError(f"cli.benchmark {key}: launch counts "
                                  f"{counts}, expected {forwards} forwards")
         tree, meta = load_npz(npz)
@@ -3704,6 +3814,7 @@ def main():
     with torch.inference_mode():
         dw_rows = phase_fused_dw_pw(model)
     stage_rows = phase_fused_stage(model, torch.from_numpy(images_np).cuda())
+    nms_rows = phase_nms(images_np)
     counts, stats = phase_main_path(images_np)
     train_counts, train_stats, train_state = phase_training()
     from yolo_nano_tpu_torch.convert import load_model
@@ -3734,6 +3845,7 @@ def main():
                       "training": train_stats,
                       "fused_dw_pw_per_shape": dw_rows,
                       "fused_stage_per_stage": stage_rows,
+                      "nms_greedy_per_case": nms_rows,
                       "main_path_bf16_05x": stats05,
                       "fused_dw_pw_bf16_05x_per_shape": dw_rows05,
                       "fused_stage_bf16_05x_per_stage": stage_rows05,
@@ -3758,10 +3870,16 @@ def main():
         kernel_row("fused_dw_pw_bf16", "fused_dw_pw_bf16.cu", dw_rows05, 2,
                    counts05["fused_dw_pw_bf16"], dw_pw_tpu),
         kernel_row("fused_stage_bf16", "fused_stage_bf16.cu", stage_rows05, 1,
-                   counts05["fused_stage_bf16"], stage_tpu)]
+                   counts05["fused_stage_bf16"], stage_tpu),
+        # the main path's call: one a predict, at the serving point
+        dict(next(r for r in nms_rows if r["case"] == "f32 main path"),
+             name="nms_greedy", route="cuda",
+             source="yolo_nano_tpu_torch/csrc/nms_greedy.cu",
+             replaces=None, launches=counts["nms_greedy"],
+             max_abs_err=0.0, library_ms=None, calls_per_forward=1)]
     for row in kernels[:2]:  # the training path's fold→predict, alone
         row["launches_train_fold_predict"] = train_counts[row["name"]]
-    for row in kernels[2:]:  # make_predict_fn on each tree, alone
+    for row in kernels[2:4]:  # make_predict_fn on each tree, alone
         row["launches_make_predict_fn_1x"] = stats1x_bf16["counts"][
             row["name"]]
         for width, st in stats_wide.items():
@@ -3805,7 +3923,7 @@ def main():
                                  else "")
         row["launches_graph"] = sum(r["counts"][row["name"]] for r in
                                     graph[key]["batches"].values())
-    for row in kernels[2:]:  # phase 10: its CLI runs' eval hooks
+    for row in kernels[2:4]:  # phase 10: its CLI runs' eval hooks
         row["launches_device_aug_eval_hooks"] = sum(
             h[row["name"]] for r in device_aug["cli"].values()
             for h in r["eval_hook_counts"])

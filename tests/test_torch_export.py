@@ -151,10 +151,11 @@ def test_f32_graph_matches_jax_predict(artifacts):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_graph_holds_the_kernel_operators(artifacts, dtype):
     """16 block and 6 dw→pw operator calls; convolutions only for the
-    stem, the neck and the head outputs (11); every weight the operators
-    take is a parameter or a constant of the graph, computed once at
-    export, not an op on the weights run at every replay; one while_loop
-    (NMS); a symbolic batch."""
+    stem, the neck and the head outputs (11); every weight the kernels'
+    operators take is a parameter or a constant of the graph, computed once
+    at export, not an op on the weights run at every replay, and so is
+    decode's table of rows; one NMS operator call and no while_loop; a
+    symbolic batch."""
     from yolo_nano_tpu_torch.serving import graph_path
 
     ep = torch.export.load(graph_path(artifacts[dtype]))
@@ -164,11 +165,15 @@ def test_graph_holds_the_kernel_operators(artifacts, dtype):
     assert targets["yolo_nano_torch.dw_pw.default"] == 6
     convs = {k: v for k, v in targets.items() if "conv" in k}
     assert convs == {"aten.conv2d.default": 11}, convs
-    assert targets["while_loop"] == 1
+    assert targets["yolo_nano_torch.nms_greedy.default"] == 1
+    assert "while_loop" not in targets
     kinds = {s.arg.name: s.kind.name for s in ep.graph_signature.input_specs}
     stored = set(ep.state_dict) | set(ep.constants)
+    (select,) = [n for n in calls if "index_select" in str(n.target)]
+    assert kinds.get(select.args[0].name) == "CONSTANT_TENSOR"
     for n in calls:
-        if str(n.target).startswith("yolo_nano_torch."):
+        if str(n.target).startswith(("yolo_nano_torch.shuffle_block",
+                                     "yolo_nano_torch.dw_pw")):
             for w in n.args[1:]:
                 if isinstance(w, torch.fx.Node):
                     assert kinds.get(w.name) in ("PARAMETER",
@@ -263,9 +268,10 @@ def test_graph_not_written_with_the_npz_is_not_replayed(artifacts,
 
 def test_graph_moved_to_a_device_runs_code_for_it(artifacts):
     """The graph replayed on another device than the CPU it was traced on
-    runs code that names that device: `move_to_device_pass` rewrites the
-    nodes' devices, and the graph modules' code is made anew from them
-    (the program's graph module is called directly), without the
+    runs code for that device: `move_to_device_pass` moves its weights and
+    constants (decode's rows among them) and rewrites the nodes' devices,
+    and the graph modules' code is made anew from them (the program's graph
+    module is called directly), naming no CPU and without the
     tensor-metadata checks that the saved graph holds."""
     from yolo_nano_tpu_torch.serving import load_predictor
 
@@ -276,8 +282,10 @@ def test_graph_moved_to_a_device_runs_code_for_it(artifacts):
     fn = load_predictor(artifacts["float32"], device="meta")
     modules = [m for m in fn.graph.graph_module.modules()
                if isinstance(m, torch.fx.GraphModule)]
-    assert len(modules) == 3  # the program and the loop's cond and body
-    assert "'meta'" in modules[0].code
+    assert len(modules) == 1  # the program: NMS is one operator, no loop
+    stored = {**fn.graph.state_dict, **fn.graph.constants}
+    assert any(t.shape[-1] == 5 for t in fn.graph.constants.values())
+    assert {t.device.type for t in stored.values()} == {"meta"}
     for m in modules:
         assert "'cpu'" not in m.code, m.code
         # the metadata checks, taken out at load, are out of the code too
@@ -327,8 +335,7 @@ def test_graph_path_sets_full_f32(artifacts):
 
 
 def _call_targets(ep) -> Counter:
-    """The targets of the call nodes of the graph and its subgraphs (the
-    NMS loop's condition and body)."""
+    """The targets of the call nodes of the graph and its subgraphs."""
     return Counter(str(n.target) for m in ep.graph_module.modules()
                    if isinstance(m, torch.fx.GraphModule)
                    for n in m.graph.nodes if n.op == "call_function")
@@ -353,4 +360,4 @@ def test_export_under_a_profiler_adds_no_span(artifacts, tmp_path):
     got = _call_targets(traced)
     assert not [t for t in got if "profiler" in t or "record_function" in t]
     assert got == _call_targets(plain)
-    assert got["while_loop"] == 1
+    assert got["yolo_nano_torch.nms_greedy.default"] == 1

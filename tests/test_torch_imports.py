@@ -82,7 +82,8 @@ def test_port_files_cover_the_export_graph_slice():
     NMS, the graph's export and replay, the FLOP count and chip_smoke.py."""
     got = {os.path.relpath(p, ROOT) for p in _port_files()}
     for name in ("ops/kernels/__init__.py", "ops/kernels/fused_stage.py",
-                 "ops/kernels/fused_conv.py", "ops/nms.py", "serving.py",
+                 "ops/kernels/fused_conv.py", "ops/kernels/nms_greedy.py",
+                 "ops/nms.py", "serving.py",
                  "cli/export.py", "utils/flops.py", "config.py"):
         assert os.path.join("yolo_nano_tpu_torch", name) in got, name
     assert "chip_smoke.py" in got

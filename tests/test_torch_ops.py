@@ -20,6 +20,7 @@ from yolo_nano_tpu_torch import config as tconfig
 from yolo_nano_tpu_torch.convert import conv_unit
 from yolo_nano_tpu_torch.ops import decode as tdecode
 from yolo_nano_tpu_torch.ops import nms as tnms
+from yolo_nano_tpu_torch.ops.kernels import nms_greedy as tknms
 from yolo_nano_tpu_torch.ops import nn as tnn
 from yolo_nano_tpu_torch.utils.fuse_bn import fold_bn
 
@@ -197,6 +198,22 @@ def test_decode_gathered_equals_decode_all_gathered(size):
     np.testing.assert_allclose(got.numpy(), jwant, **F32)
 
 
+def test_decode_rows_are_built_once_per_key():
+    """decode's rows are kept per (config, size, device): the same tensor
+    again, another at another size; each row is `make_grids`' cell, stride
+    and anchor of that flat index."""
+    tcfg, _ = _coco_cfgs(224)
+    rows = tdecode.decode_rows(tcfg, 224, "cpu")
+    assert tdecode.decode_rows(tcfg, 224, torch.device("cpu")) is rows
+    assert tdecode.decode_rows(tcfg, 416, "cpu").shape == (
+        tcfg.num_cells(416) * 3, 5)
+    g = tdecode.make_grids(tcfg, 224)
+    n = tcfg.num_cells(224)
+    want = torch.cat([g.grid_xy.expand(n, 3, 2), g.stride.expand(n, 3, 1),
+                      g.anchor_wh], -1).reshape(n * 3, 5)
+    assert rows.dtype == torch.float32 and torch.equal(rows, want)
+
+
 def test_stable_topk_breaks_ties_by_lower_index():
     x = np.array([0.5, 0.7, 0.5, 0.7, 0.5, -1, -1], np.float32)
     _, jidx = jax.lax.top_k(jnp.asarray(x), 5)
@@ -236,12 +253,12 @@ def _candidates(rng, b, k, n_valid, ties=False):
 
 
 def _host_fixpoint(boxes, valid, thresh, diou=False):
-    """The port's sweeps as they ran before the `while_loop`: a Python loop
+    """The port's sweeps as they ran before the operator: a Python loop
     ending on `torch.equal` of the keep sets."""
     boxes = torch.from_numpy(boxes)
-    ovr = tnms._pairwise_iou(boxes)
+    ovr = tknms._pairwise_iou(boxes)
     if diou:
-        ovr = ovr - tnms._pairwise_diou_penalty(boxes)
+        ovr = ovr - tknms._pairwise_diou_penalty(boxes)
     k = boxes.shape[-2]
     order = torch.arange(k)
     sup = (ovr > thresh) & (order[:, None] < order[None, :])
@@ -253,6 +270,13 @@ def _host_fixpoint(boxes, valid, thresh, diou=False):
             break
         keep = new
     return keep
+
+
+def _call_targets(module):
+    """The targets of a traced module's operator calls other than views."""
+    return [str(n.target) for n in module.graph.nodes
+            if n.op == "call_function" and "view" not in str(n.target)
+            and "reshape" not in str(n.target)]
 
 
 class _Nms(torch.nn.Module):
@@ -290,17 +314,55 @@ def test_nms_on_candidates_matches_jax(diou, ties, max_det, seed):
         np.testing.assert_array_equal(
             keep[i].numpy(),
             _sequential_greedy(shifted[i], score[i] >= 0, 0.45, diou))
-    # the keep sets are the old loop's, eagerly and as the `while_loop`
-    # operator that an exported graph runs
+    # the keep sets are the old loop's, eagerly and as the one operator
+    # call `yolo_nano_torch::nms_greedy` that an exported graph holds
     np.testing.assert_array_equal(
         keep.numpy(), _host_fixpoint(shifted, score >= 0, 0.45, diou).numpy())
     traced = torch.export.export(_Nms(diou), (
         torch.from_numpy(shifted), torch.from_numpy(score >= 0))).module()
-    assert any(str(n.target) == "while_loop" for n in traced.graph.nodes)
+    assert _call_targets(traced) == ["yolo_nano_torch.nms_greedy.default"]
     np.testing.assert_array_equal(
         traced(torch.from_numpy(shifted), torch.from_numpy(score >= 0)),
         keep.numpy())
     assert int(got[3].sum()) < 3 * 40 // 2  # suppression did real work
+
+
+def test_nms_operator_is_registered_with_a_fake():
+    """`yolo_nano_torch::nms_greedy` is an operator of the kernels' library;
+    its fake gives valid's shape and dtype; the wrapper takes any leading
+    dims and refuses what the operator does not take."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    import yolo_nano_tpu_torch.ops.kernels as kernels
+
+    op = torch.ops.yolo_nano_torch.nms_greedy.default
+    assert kernels.PLAIN_VERSIONS[op] is tknms.nms_greedy_plain
+    with FakeTensorMode() as mode:
+        boxes = mode.from_tensor(torch.zeros(5, 33, 4))
+        valid = mode.from_tensor(torch.ones(5, 33, dtype=torch.bool))
+        keep = op(boxes, valid, 0.45, True)
+    assert keep.shape == (5, 33) and keep.dtype == torch.bool
+    rng = np.random.default_rng(3)
+    boxes, score, _ = _candidates(rng, 6, 20, 16)
+    grid = torch.from_numpy(boxes).reshape(2, 3, 20, 4)
+    valid = torch.from_numpy(score >= 0).reshape(2, 3, 20)
+    np.testing.assert_array_equal(
+        tnms.nms_greedy(grid, valid, 0.45).reshape(6, 20),
+        _host_fixpoint(boxes, score >= 0, 0.45))
+    with pytest.raises(ValueError):
+        tnms.nms_greedy(grid.double(), valid, 0.45)
+    with pytest.raises(ValueError):
+        tnms.nms_greedy(grid, valid[..., :-1], 0.45)
+
+
+def test_nms_greedy_without_candidates_returns_a_new_tensor():
+    """No valid candidate: the plain version's loop ends at once and keeps
+    nothing, in a tensor of its own (an operator returns no alias of its
+    input)."""
+    boxes = torch.rand(2, 9, 4)
+    valid = torch.zeros(2, 9, dtype=torch.bool)
+    keep = tnms.nms_greedy(boxes, valid, 0.5)
+    assert not keep.any() and keep.data_ptr() != valid.data_ptr()
 
 
 @pytest.mark.parametrize("k", [2, 16])
@@ -308,7 +370,7 @@ def test_nms_greedy_on_a_chain_settles_one_candidate_a_sweep(k):
     """Each box overlaps its neighbours alone (IoU 0.67), so the keep set
     settles one candidate a sweep: the most sweeps that K candidates can
     take. The loop, which has no it < K cap, ends with the sequential
-    greedy's keep set, eagerly and as the traced `while_loop`."""
+    greedy's keep set, eagerly and as the exported operator."""
     x = np.arange(k, dtype=np.float32) * 2
     boxes = np.stack([x, np.zeros(k), x + 10, np.full(k, 10)], -1).astype(
         np.float32)

@@ -81,7 +81,7 @@ def predict_fn():
 def _sweeps_by_hand(boxes, valid, iou_thresh):
     """The NMS loop's body run by hand until a sweep changes nothing → the
     number of sweeps."""
-    from yolo_nano_tpu_torch.ops.nms import _pairwise_iou
+    from yolo_nano_tpu_torch.ops.kernels.nms_greedy import _pairwise_iou
 
     k = boxes.shape[-2]
     order = torch.arange(k)

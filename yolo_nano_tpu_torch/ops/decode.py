@@ -5,7 +5,7 @@ Rows are HW-major and level-concatenated: n = level_offset + cell·A + anchor.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Dict, NamedTuple
 
 import numpy as np
 import torch
@@ -52,28 +52,44 @@ def decode_boxes(txtytwth: torch.Tensor, grids: Grids) -> torch.Tensor:
     return _corners(xy, wh).reshape(b, hw * a, 4)
 
 
+# decode's rows on each device, built once per key (`decode_rows`)
+_ROWS: Dict[tuple, torch.Tensor] = {}
+
+
+def decode_rows(cfg: YoloNanoConfig, input_size: int,
+                device) -> torch.Tensor:
+    """[ΣHW·A, 5] f32: for each flat row n, `make_grids`'s cell x, cell y,
+    stride, anchor w, anchor h. Built once per (strides, anchors, anchors
+    per level, input size, device) and kept, so that decoding enqueues no
+    host copy (a copy from pageable host memory waits for the device). Not
+    kept when built during a trace, whose tensors are the tracer's: a
+    graph traced after an eager call (as `serving.export_graph` makes one)
+    holds the kept rows as a constant. Callers only read it."""
+    device = torch.device(device)
+    key = (tuple(cfg.strides), tuple(map(tuple, cfg.anchors)),
+           cfg.num_anchors_per_level, input_size, device)
+    rows = _ROWS.get(key)
+    if rows is None:
+        g = make_grids(cfg, input_size)
+        hw, a = g.anchor_wh.shape[:2]
+        rows = torch.cat([g.grid_xy.expand(hw, a, 2),
+                          g.stride.expand(hw, a, 1), g.anchor_wh],
+                         -1).reshape(hw * a, 5).to(device)
+        if not torch.compiler.is_compiling():
+            _ROWS[key] = rows
+    return rows
+
+
 def decode_boxes_gathered(txtytwth_k: torch.Tensor, idx: torch.Tensor,
                           cfg: YoloNanoConfig, input_size: int) -> torch.Tensor:
     """Decode only selected candidates: equal to `decode_boxes` gathered at
-    the flat indices `idx` [B,K]. txtytwth_k [B,K,4] holds the raw head
-    outputs already gathered there. The cell, stride and anchor of each
-    index follow from integer arithmetic and small exact table lookups."""
-    a = cfg.num_anchors_per_level
-    dev = idx.device
-    idx = idx.long()
-    cell, anchor = idx // a, idx % a
-    widths = [input_size // s for s in cfg.strides]
-    offsets = np.cumsum([0] + [w * w for w in widths])
-    level = torch.zeros_like(cell)
-    for li in range(1, len(widths)):
-        level = torch.where(cell >= int(offsets[li]), li, level)
-    stride = torch.tensor(cfg.strides, dtype=torch.float32, device=dev)[level]
-    w_l = torch.tensor(widths, dtype=torch.long, device=dev)[level]
-    c_in = cell - torch.tensor(offsets[:-1], dtype=torch.long,
-                               device=dev)[level]
-    gxy = torch.stack([c_in % w_l, c_in // w_l], -1).float()  # (x, y)
-    anchors = torch.tensor(cfg.anchors, dtype=torch.float32, device=dev)
-    awh = anchors[level * a + anchor]
-    xy = (torch.sigmoid(txtytwth_k[..., :2]) + gxy) * stride[..., None]
-    wh = torch.exp(txtytwth_k[..., 2:]) * awh
+    the flat indices `idx` [B,K], bit for bit (the same operations on the
+    same grid values). txtytwth_k [B,K,4] holds the raw head outputs
+    already gathered there; each index's cell, stride and anchor are its
+    row of `decode_rows`, kept on the device."""
+    b, k = idx.shape
+    g = torch.index_select(decode_rows(cfg, input_size, idx.device), 0,
+                           idx.reshape(-1)).reshape(b, k, 5)
+    xy = (torch.sigmoid(txtytwth_k[..., :2]) + g[..., :2]) * g[..., 2:3]
+    wh = torch.exp(txtytwth_k[..., 2:]) * g[..., 3:]
     return _corners(xy, wh)

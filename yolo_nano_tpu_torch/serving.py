@@ -165,15 +165,16 @@ def export_graph(model, cfg, img_size: int, dtype: str, path: str):
     """Trace the serving graph of a folded model on the CPU and save it at
     `path` (a `.pt2`); → the ExportedProgram.
 
-    One forward at 64 px first builds each stage's and head's kernel-layout
-    weights, so that the graph holds them as constants instead of the ops
-    that make them. The example batch is 2: torch.export specializes a
-    dimension of size 0 or 1."""
+    One eager call of the graph at `img_size` first builds what the port
+    keeps across calls (each stage's and head's kernel-layout weights,
+    decode's rows), so that the graph holds them as constants instead of
+    the ops that make them. The example batch is 2: torch.export
+    specializes a dimension of size 0 or 1."""
     if {p.device.type for p in model.parameters()} != {"cpu"}:
         raise ValueError("export_graph traces a model on the CPU")
     graph = ServingGraph(model.eval(), cfg, img_size, DTYPES[dtype])
     with torch.no_grad():
-        model(torch.zeros((1, 64, 64, 3), dtype=DTYPES[dtype]))
+        graph(torch.zeros((1, img_size, img_size, 3)))
         ep = torch.export.export(
             graph, (torch.zeros((2, img_size, img_size, 3)),),
             dynamic_shapes=({0: torch.export.Dim("b", min=1)},))

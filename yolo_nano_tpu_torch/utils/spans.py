@@ -14,9 +14,12 @@ The names, all `ynt.`:
 - `ynt.predict`: a predict function's whole call (`serving`);
 - `ynt.forward`: `YoloNano.forward`, backbone, neck and heads;
 - `ynt.postprocess`: scores, top-k, decode and NMS (`models.yolo_nano.detect`);
-- `ynt.nms.wait`: each host read of the NMS loop's condition, the host
-  blocked on the device (sweeps + 1 a call); `ynt.nms.sweep`: each sweep
-  (`ops.nms.nms_greedy`, eager loop);
+- `ynt.nms.kernel`: each launch of the NMS kernel on CUDA
+  (`ops.kernels.nms_greedy`, the operator's CUDA implementation);
+- `ynt.nms.wait`: each host read of the plain NMS loop's condition, the
+  host blocked on the device (sweeps + 1 a call); `ynt.nms.sweep`: each
+  sweep (`ops.kernels.nms_greedy.nms_greedy_plain`, the operator's CPU
+  implementation);
 - `ynt.train.step` and its phases `ynt.train.augment`, `.targets`,
   `.loss`, `.backward`, `.all_reduce`, `.update` (`TrainStep.__call__`).
 """
