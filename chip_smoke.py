@@ -141,7 +141,12 @@ Phases, each of which raises on failure (exit code non-zero, no result line):
      classes, against the same run without --coordinator: logged losses
      within 1e-5, the eval hooks' detections matched and their AP within
      EVAL_BF16_AP_ATOL;
- 12. a JSON line of kernel numbers, the card line, and the result line.
+ 12. NanoDet-Plus-m-1.5x (the seeded bf16 artifact) through load_predictor:
+     one predict's launches (3 LeakyReLU stages of 16 blocks, 12 5x5
+     pairs, 1 NMS), its detections against the plain-version predict
+     (matched as bf16), its ms and img/s, and each 5x5 pair and LeakyReLU
+     stage of a forward alone: kernel, plain and bound ms;
+ 13. a JSON line of kernel numbers, the card line, and the result line.
 
 A bound is the least time the card could take for a kernel's work: the
 larger of its bytes (each input read once, each output written once) over
@@ -158,6 +163,7 @@ phase 3 and prints no result line. --sweep-dw-pw-tiles does the same for
 fused_dw_pw at each head level over a grid of tiles (columns x rows): the
 f32 kernel at batch 32, the bf16 kernel at batch 32, 8 and 1.
 --graph-only runs phase 9 alone after phase 1, with no result line;
+--nanodet-only runs phase 12 alone after phase 1, with no result line;
 --data-parallel-only runs phase 11 alone after phase 1, on the sets of
 phases 6 and 7 written anew, with no result line.
 """
@@ -178,6 +184,8 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 NPZ = os.path.join(ROOT, "yolo_nano_tpu_torch", "assets", "bench_coco416.npz")
+NPZ_NANODET = os.path.join(ROOT, "yolo_nano_tpu_torch", "assets",
+                           "nanodet_plus_m_1.5x_416_seed0.npz")
 NPZ_05X = os.path.join(ROOT, "yolo_nano_tpu_torch", "assets",
                        "bench_coco416_05x.npz")
 BATCH = 32
@@ -811,20 +819,22 @@ def sweep_stage_tiles(model, x, label="f32"):
 def plain_kernels():
     """Route the model's kernel calls and NMS to their plain versions, for
     the comparison run only."""
-    from yolo_nano_tpu_torch.models import shufflenetv2, yolo_nano
+    from yolo_nano_tpu_torch.models import nanodet_plus, shufflenetv2, yolo_nano
     from yolo_nano_tpu_torch.ops import nms
     from yolo_nano_tpu_torch.ops.kernels import (fused_conv, fused_stage,
                                                  nms_greedy)
 
-    saved = shufflenetv2.fused_stage, yolo_nano.fused_dw_pw, nms.nms_greedy
+    saved = (shufflenetv2.fused_stage, yolo_nano.fused_dw_pw,
+             nanodet_plus.fused_dw_pw, nms.nms_greedy)
     shufflenetv2.fused_stage = fused_stage.fused_stage_plain
     yolo_nano.fused_dw_pw = fused_conv.fused_dw_pw_plain
+    nanodet_plus.fused_dw_pw = fused_conv.fused_dw_pw_plain
     nms.nms_greedy = nms_greedy.nms_greedy_plain
     try:
         yield
     finally:
-        shufflenetv2.fused_stage, yolo_nano.fused_dw_pw, nms.nms_greedy = (
-            saved)
+        (shufflenetv2.fused_stage, yolo_nano.fused_dw_pw,
+         nanodet_plus.fused_dw_pw, nms.nms_greedy) = saved
 
 
 def reset_counts():
@@ -1497,7 +1507,8 @@ def bf16_ulps(got, want) -> tuple:
     return err.max().item() / top_ulp, (err / ulp).max().item()
 
 
-def block_launch_row(lib, x, w, want, dtype, iters: int = 20) -> dict:
+def block_launch_row(lib, x, w, want, dtype, iters: int = 20,
+                     act: str = "relu") -> dict:
     """One stage-block launch on x: its stride, input shape, the tile its
     kernel's rule picks, device ms per launch and bound."""
     from yolo_nano_tpu_torch.ops.kernels.fused_stage import (_launch_block,
@@ -1510,13 +1521,15 @@ def block_launch_row(lib, x, w, want, dtype, iters: int = 20) -> dict:
     return dict(stride=s, shape=tuple(x.shape),
                 tile=block_tile(s, cin, c2, b, (h - 1) // s + 1,
                                 (wd - 1) // s + 1, dtype),
-                ms=time_ms(lambda: _launch_block(lib, x, w), iters=iters,
-                           queued=True),
+                ms=time_ms(lambda: _launch_block(lib, x, w, act=act),
+                           iters=iters, queued=True),
                 bound_ms=b_ms, bound_by=b_by)
 
 
-def check_blocks_bf16(tag, x, blocks, verbose: bool = True, iters: int = 20):
-    """Each block's bf16 kernel against the plain block on the same input,
+def check_blocks_bf16(tag, x, blocks, verbose: bool = True, iters: int = 20,
+                      act: str = "relu"):
+    """Each block's bf16 kernel (activation `act`) against the plain block
+    on the same input,
     the plain chain's: within BF16_BLOCK_ULPS of the block's max|ref| and
     BF16_BLOCK_EQUAL bit-equal. Both are also held to the witness, the
     block with f64 sums rounded to bf16 where the function rounds: over
@@ -1533,9 +1546,9 @@ def check_blocks_bf16(tag, x, blocks, verbose: bool = True, iters: int = 20):
     least = 1.0
     launches = []
     for i, w in enumerate(blocks):
-        want = block_plain(x, w)
-        got = _launch_block(lib, x, w)
-        exact = block_plain(x, w, wide=torch.float64)
+        want = block_plain(x, w, act=act)
+        got = _launch_block(lib, x, w, act=act)
+        exact = block_plain(x, w, wide=torch.float64, act=act)
         ulps, own_ulps = bf16_ulps(got, want)
         same = int((got == want).sum())
         n = want.numel()
@@ -1553,7 +1566,7 @@ def check_blocks_bf16(tag, x, blocks, verbose: bool = True, iters: int = 20):
         off += k_off
         plain_off += p_off
         row = dict(block=i, **block_launch_row(lib, x, w, want,
-                                               torch.bfloat16, iters),
+                                               torch.bfloat16, iters, act),
                    ulps=ulps, bit_equal_share=same / n,
                    off_f64_share=k_off / n, plain_off_f64_share=p_off / n)
         if verbose:
@@ -3755,6 +3768,179 @@ def kernel_row(name, source, rows, per_fwd, launches, replaces):
         calls_per_forward=per_fwd * len(rows))
 
 
+def nanodet_counts() -> dict:
+    """The launch counters a NanoDet-Plus predict moves."""
+    from yolo_nano_tpu_torch.ops.kernels.fused_conv import fused_dw_pw
+    from yolo_nano_tpu_torch.ops.kernels.fused_stage import fused_stage
+    from yolo_nano_tpu_torch.ops.kernels.nms_greedy import nms_greedy
+
+    return dict(fused_stage_calls=fused_stage.calls,
+                fused_stage=fused_stage.launches,
+                fused_stage_bf16=fused_stage.launches_bf16,
+                fused_stage_leaky=fused_stage.launches_leaky,
+                fused_dw_pw=fused_dw_pw.launches,
+                fused_dw_pw_bf16=fused_dw_pw.launches_bf16,
+                fused_dw_pw_k5=fused_dw_pw.launches_k5,
+                nms_greedy=nms_greedy.launches)
+
+
+# launches of one NanoDet-Plus predict: 3 LeakyReLU stages of 16 blocks in
+# bf16, 12 stride-1 5×5 pairs (8 in the heads, 4 GhostBottleneck shortcuts)
+# and one NMS
+NANODET_COUNTS = dict(fused_stage_calls=3, fused_stage=16, fused_stage_bf16=16,
+                      fused_stage_leaky=16, fused_dw_pw=12,
+                      fused_dw_pw_bf16=12, fused_dw_pw_k5=12, nms_greedy=1)
+
+
+def phase_nanodet(images_np):
+    """The NanoDet-Plus artifact (seeded, bf16) through load_predictor on
+    the card: one predict's launches (NANODET_COUNTS), its detections
+    against the plain-version predict (matched as bf16, BF16_MATCH), its
+    ms and img/s at BATCH; then each 5×5 pair and LeakyReLU stage of a
+    forward at BATCH alone, on the forward's own inputs: each 5×5 pair
+    against its plain version (check_bf16_pair, check_witness) and each
+    stage block against its plain block (check_blocks_bf16, LeakyReLU),
+    with kernel ms (queued), plain ms, bound ms and, for the pairs, cuDNN
+    bf16's (the dw 5×5, then the 1×1). → the phase's numbers and a
+    `kernels` row of each variant."""
+    import torch.nn.functional as F
+
+    from yolo_nano_tpu_torch.models.nanodet_plus import DwPw
+    from yolo_nano_tpu_torch.models.shufflenetv2 import ShuffleStage
+    from yolo_nano_tpu_torch.ops.kernels.fused_conv import fused_dw_pw_plain
+    from yolo_nano_tpu_torch.ops.kernels.fused_stage import (
+        fused_stage_plain, prepare_stage)
+    from yolo_nano_tpu_torch.ops.nn import activate
+    from yolo_nano_tpu_torch.serving import load_predictor
+
+    fn = load_predictor(NPZ_NANODET, device="cuda")
+    cfg = fn.cfg
+    x = torch.from_numpy(images_np).cuda()
+    fn(x)
+    torch.cuda.synchronize()
+    before = nanodet_counts()
+    got = tuple(t.cpu().numpy() for t in fn(x))
+    counts = {k: v - before[k] for k, v in nanodet_counts().items()}
+    if counts != NANODET_COUNTS:
+        raise AssertionError(f"NanoDet-Plus launches {counts}, want "
+                             f"{NANODET_COUNTS}")
+    with plain_kernels():
+        plain = tuple(t.cpu().numpy() for t in fn(x))
+    agree = match_detections(got, plain, cfg.conf_thresh, cfg.nms_thresh,
+                             **BF16_MATCH)
+    ms = time_ms(lambda: fn(x), iters=10)
+    # each 5×5 pair and stage of a forward, at this batch, alone
+    inputs, model = [], fn.model
+    hooks = [m.register_forward_pre_hook(
+        lambda mod, args: inputs.append((mod, args[0])))
+        for m in model.modules()
+        if (isinstance(m, DwPw) and m.fused) or isinstance(m, ShuffleStage)]
+    with torch.inference_mode():
+        model(x.to(fn.dtype))
+    for h in hooks:
+        h.remove()
+    rows = []
+    with torch.inference_mode():
+        for mod, xin in inputs:
+            b, c, h, w = xin.shape
+            if isinstance(mod, DwPw):
+                dw_w, dw_b, pw_w, pw_b = mod._pair()
+                act_mid, act_out = mod.dw.act, mod.pw.act
+                cout = pw_w.shape[1]
+                px = b * h * w
+                flops = px * (2 * 25 * c + 2 * c * cout)
+                nb = px * (c + cout) * 2 + nbytes(dw_w, dw_b, pw_w, pw_b)
+                kind = f"dw5_pw {c}->{cout} {h}x{w}"
+
+                def plain_pair(wide=None):
+                    return fused_dw_pw_plain(xin, dw_w, dw_b, pw_w, pw_b,
+                                             act_mid=act_mid,
+                                             act_out=act_out, wide=wide)
+
+                dw_conv = dw_w.permute(2, 0, 1).unsqueeze(1).to(xin.dtype)
+                pw_conv = pw_w.t()[:, :, None, None]
+
+                def library():  # cuDNN: depthwise conv, then 1×1 conv
+                    y = activate(F.conv2d(xin, dw_conv, dw_b.to(xin.dtype),
+                                          padding=2, groups=c), act_mid)
+                    return activate(F.conv2d(y, pw_conv,
+                                             pw_b.to(xin.dtype)), act_out)
+
+                out, want = mod(xin), plain_pair()
+                row = check_bf16_pair(kind, out, want,
+                                      plain_pair(torch.float64))
+                row.update(max_abs_err=(out.float() - want.float()).abs()
+                           .max().item(),
+                           plain_ms=time_ms(plain_pair, iters=5, queued=True),
+                           library_ms=time_ms(library, queued=True))
+            else:
+                blocks = prepare_stage(mod)
+                flops, wbytes = _stage_cost(xin, blocks)
+                out = mod(xin)
+                nb = nbytes(xin, out) + wbytes
+                kind = f"stage {c}->{out.shape[1]} {h}x{w}"
+                _, errors, _ = check_blocks_bf16(kind, xin, blocks,
+                                                 verbose=False, iters=5,
+                                                 act="leaky")
+                row = dict(ulps=errors["max_ulps"],
+                           bit_equal_share=errors["bit_equal_share"],
+                           max_abs_err=errors["max_abs_err"],
+                           plain_ms=time_ms(lambda: fused_stage_plain(
+                               xin, blocks, act="leaky"), iters=5,
+                               queued=True), library_ms=None)
+            bound_ms, by = bound(nb, flops, torch.bfloat16)
+            rows.append(dict(kind=kind, ms=time_ms(lambda: mod(xin),
+                                                   queued=True),
+                             bound_ms=bound_ms, bound_by=by, **row))
+    pairs = [r for r in rows if r["kind"].startswith("dw5")]
+    stages = [r for r in rows if r["kind"].startswith("stage")]
+    check_witness("[12] bf16 5x5 fused_dw_pw", pairs)
+    total = lambda rs, key: sum(r[key] for r in rs)  # noqa: E731
+    out = dict(counts=counts, agree=agree, predict_ms=ms,
+               img_per_s=BATCH / ms * 1e3, pair5_ms=total(pairs, "ms"),
+               pair5_bound_ms=total(pairs, "bound_ms"),
+               pair5_library_ms=total(pairs, "library_ms"),
+               stage_leaky_ms=total(stages, "ms"),
+               stage_leaky_bound_ms=total(stages, "bound_ms"), rows=rows)
+    print(f"[12] NanoDet-Plus bf16 at batch {BATCH}: launches {counts}; "
+          f"detections against the plain path {agree}; predict "
+          f"{ms:.3f} ms ({BATCH / ms * 1e3:.0f} img/s); 12 5x5 pairs "
+          f"{out['pair5_ms']:.4f} ms (bound {out['pair5_bound_ms']:.4f}, "
+          f"cuDNN {out['pair5_library_ms']:.4f}); 3 leaky stages "
+          f"{out['stage_leaky_ms']:.4f} ms (bound "
+          f"{out['stage_leaky_bound_ms']:.4f})")
+    for r in rows:
+        lib = (f", cuDNN {r['library_ms']:.4f}" if r["library_ms"] is not None
+               else "")
+        print(f"  {r['kind']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f}"
+              f"{lib}, bound {r['bound_ms']:.4f} ({r['bound_by']}); "
+              f"{r['ulps']:.3g} bf16 ulps of max|ref|, "
+              f"{r['bit_equal_share']:.6f} bit-equal")
+    # the `kernels` rows of the two variants, one predict's launches each
+    source = "yolo_nano_tpu_torch/csrc/"
+    out["kernels"] = [
+        dict(name="fused_dw_pw_bf16_k5", route="cuda",
+             source=source + "fused_dw_pw_bf16.cu",
+             replaces="yolo_nano_tpu/ops/pallas/fused_conv.py:108",
+             launches=counts["fused_dw_pw_k5"],
+             max_abs_err=max(r["max_abs_err"] for r in pairs),
+             ms=out["pair5_ms"], plain_ms=total(pairs, "plain_ms"),
+             bound_ms=out["pair5_bound_ms"],
+             bound_by=max(pairs, key=lambda r: r["bound_ms"])["bound_by"],
+             library_ms=out["pair5_library_ms"],
+             calls_per_forward=len(pairs)),
+        dict(name="fused_stage_bf16_leaky", route="cuda",
+             source=source + "fused_stage_bf16.cu",
+             replaces="yolo_nano_tpu/ops/pallas/fused_stage.py:223",
+             launches=counts["fused_stage_leaky"],
+             max_abs_err=max(r["max_abs_err"] for r in stages),
+             ms=out["stage_leaky_ms"], plain_ms=total(stages, "plain_ms"),
+             bound_ms=out["stage_leaky_bound_ms"],
+             bound_by=max(stages, key=lambda r: r["bound_ms"])["bound_by"],
+             library_ms=None, calls_per_forward=len(stages))]
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--sweep-stage-tiles", action="store_true",
@@ -3768,8 +3954,14 @@ def main():
     parser.add_argument("--data-parallel-only", action="store_true",
                         help="phase 11 alone, after phase 1, on newly "
                         "written sets")
+    parser.add_argument("--nanodet-only", action="store_true",
+                        help="phase 12 alone, after phase 1")
     args = parser.parse_args()
     card = phase_device_and_build()
+    if args.nanodet_only:
+        print(json.dumps(phase_nanodet(render_scenes(BATCH, SIZE))))
+        print(card)
+        return
     if args.graph_only:
         with tempfile.TemporaryDirectory() as tmp:
             phase_graph(render_scenes(BATCH, SIZE), tmp, card)
@@ -3841,6 +4033,7 @@ def main():
             voc_root, tmp, train_state, config_from_json(load_npz(NPZ)[1]),
             cli_stats)
         data_parallel = phase_data_parallel(voc_root, tmp, images_np)
+    nanodet = phase_nanodet(images_np)
     print(json.dumps({"main_path": stats, "batch": BATCH, "size": SIZE,
                       "training": train_stats,
                       "fused_dw_pw_per_shape": dw_rows,
@@ -3854,7 +4047,8 @@ def main():
                       "eval": eval_stats, "train_cli": cli_stats,
                       "serving_tools": serving, "graph": graph,
                       "device_aug": device_aug,
-                      "data_parallel": data_parallel}))
+                      "data_parallel": data_parallel,
+                      "nanodet_plus": nanodet}))
     # the main path runs the heads in f32 with leaky/leaky
     main_dw = [r for r in dw_rows if r["dtype"] == "float32"
                and r["acts"] == "leaky/leaky"]
@@ -3933,6 +4127,7 @@ def main():
             r["counts"][name] for r in data_parallel["predict"].values()
         ) + sum(h[name] for h in data_parallel["cli"]["group"][
             "eval_hook_counts"])
+    kernels += nanodet["kernels"]  # phase 12's variants, its predict alone
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -256,7 +256,7 @@ def test_dw_pw_tiles_at_main_path_widths(dev):
     for (batch, side), (tile, per_sm) in BF16_DW_PW_TILES.items():
         assert tile_shape(batch, side, side, 96, 96, 2) == tile, (batch, side)
         assert smem_bytes(*tile, 96, 96, bf16) <= 227 * 1024
-        assert blocks(*tile, 96, 96) == per_sm, (batch, side)
+        assert blocks(*tile, 96, 96, 3) == per_sm, (batch, side)
     # taps, biases and a zero (9·96 + 96 + 96 + 1, to 1060 floats); weights
     # 96 rows x (96 + 8); output 128 rows x 104; two regions of 15 x 11
     # cells x 96 channels: two blocks an SM

@@ -3,6 +3,11 @@
 Anchor tables are the reference k-means anchors (pixel units); the channel
 tables and repeats are ShuffleNetV2's. The port keeps its own copy so that it
 imports nothing of the JAX package.
+
+Two model families: YOLO-Nano (`YoloNanoConfig`, the JAX package's model)
+and NanoDet-Plus (`NanoDetPlusConfig`, RangiLyu/nanodet's anchor-free
+detector on the same ShuffleNetV2 backbone). An artifact's meta names its
+family under the key "model"; without it the artifact is YOLO-Nano.
 """
 
 from __future__ import annotations
@@ -79,13 +84,62 @@ class YoloNanoConfig:
         return self.num_cells(input_size) * self.num_anchors_per_level
 
 
-def config_from_json(meta: dict, **overrides) -> YoloNanoConfig:
-    """An artifact's `config.json` content → YoloNanoConfig (JSON lists back
-    to the tuples the frozen dataclass expects)."""
+NANODET_PLUS = "nanodet_plus"  # an artifact meta's "model" of that family
+
+
+@dataclasses.dataclass(frozen=True)
+class NanoDetPlusConfig:
+    """NanoDet-Plus (RangiLyu/nanodet, `config/nanodet-plus-m-*.yml`):
+    ShuffleNetV2 with LeakyReLU(0.1), GhostPAN of `neck_channels` with
+    `kernel_size` depthwise convs and one extra level, one GFL head a level
+    (two dw→pw pairs, then a 1×1 to num_classes + 4·(reg_max + 1)).
+    Scores are sigmoid(class logit) per (prior, class) pair (multi-label);
+    the thresholds are NanoDet's own (`multiclass_nms`: score > 0.05, IoU
+    0.6, 100 kept) with the fixed pre-top-k over pairs that a fixed-shape
+    postprocess needs."""
+
+    num_classes: int = 80
+    backbone: str = "1.5x"  # any of SHUFFLENETV2_CHANNELS keys
+    strides: Tuple[int, ...] = (8, 16, 32, 64)
+    neck_channels: int = 128
+    kernel_size: int = 5
+    reg_max: int = 7
+    conf_thresh: float = 0.05
+    nms_thresh: float = 0.6
+    diou_nms: bool = False
+    nms_pre_topk: int = 1000  # (prior, class) pairs entering NMS
+    max_detections: int = 100
+    compute_dtype: str = "float32"
+
+    @property
+    def backbone_channels(self) -> Tuple[int, ...]:
+        return SHUFFLENETV2_CHANNELS[self.backbone]
+
+    @property
+    def head_out_channels(self) -> int:
+        return self.num_classes + 4 * (self.reg_max + 1)
+
+    def level_sides(self, input_size: int) -> Tuple[int, ...]:
+        """Feature-map side of each level: ceil(size / stride), as NanoDet's
+        `get_bboxes` lays its priors."""
+        return tuple(-(-input_size // s) for s in self.strides)
+
+    def num_predictions(self, input_size: int) -> int:
+        """Priors N = Σ side² over the levels (3,598 at 416 px)."""
+        return sum(h * h for h in self.level_sides(input_size))
+
+
+def config_from_json(meta: dict, **overrides):
+    """An artifact's `config.json` content → its family's config
+    (`NanoDetPlusConfig` where meta["model"] is "nanodet_plus", else
+    YoloNanoConfig), JSON lists back to the tuples the frozen dataclasses
+    expect."""
     raw = dict(meta["config"])
-    raw["anchors"] = tuple(tuple(a) for a in raw["anchors"])
     raw["strides"] = tuple(raw["strides"])
     raw.update(overrides)
+    if meta.get("model") == NANODET_PLUS:
+        return NanoDetPlusConfig(**raw)
+    raw["anchors"] = tuple(tuple(a) for a in raw["anchors"])
     return YoloNanoConfig(**raw)
 
 

@@ -31,8 +31,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from yolo_nano_tpu_torch.config import (CONFIG_KEY, YoloNanoConfig,
-                                        config_from_json)
+from yolo_nano_tpu_torch.config import (CONFIG_KEY, NanoDetPlusConfig,
+                                        YoloNanoConfig, config_from_json)
 from yolo_nano_tpu_torch.models.shufflenetv2 import (ShuffleBlock,
                                                      ShuffleNetV2,
                                                      ShuffleStage)
@@ -70,8 +70,10 @@ def _sub(stats, key):
     return None if stats is None else stats[key]
 
 
-def build_shufflenetv2(params: dict, stats: Optional[dict] = None
-                       ) -> ShuffleNetV2:
+def build_shufflenetv2(params: dict, stats: Optional[dict] = None,
+                       act: str = "relu") -> ShuffleNetV2:
+    """The backbone from a JAX tree, `act` ("relu", or "leaky" for
+    NanoDet-Plus) in the stem and every pointwise unit."""
     stages = []
     for name in ("stage2", "stage3", "stage4"):
         blocks = []
@@ -81,21 +83,21 @@ def build_shufflenetv2(params: dict, stats: Optional[dict] = None
             stride = 2 if "branch1" in bp else 1
             b2p, b2s = bp["branch2"], _sub(bs, "branch2")
             branch2 = nn.ModuleDict({
-                "pw1": conv_unit(b2p["pw1"], _sub(b2s, "pw1"), act="relu"),
+                "pw1": conv_unit(b2p["pw1"], _sub(b2s, "pw1"), act=act),
                 "dw": conv_unit(b2p["dw"], _sub(b2s, "dw"), stride=stride),
-                "pw2": conv_unit(b2p["pw2"], _sub(b2s, "pw2"), act="relu"),
+                "pw2": conv_unit(b2p["pw2"], _sub(b2s, "pw2"), act=act),
             })
             branch1 = None
             if "branch1" in bp:
                 b1p, b1s = bp["branch1"], _sub(bs, "branch1")
                 branch1 = nn.ModuleDict({
                     "dw": conv_unit(b1p["dw"], _sub(b1s, "dw"), stride=2),
-                    "pw": conv_unit(b1p["pw"], _sub(b1s, "pw"), act="relu"),
+                    "pw": conv_unit(b1p["pw"], _sub(b1s, "pw"), act=act),
                 })
             blocks.append(ShuffleBlock(branch2, branch1))
         stages.append(ShuffleStage(blocks))
     conv1 = conv_unit(params["conv1"], _sub(stats, "conv1"), stride=2,
-                      act="relu")
+                      act=act)
     return ShuffleNetV2(conv1, *stages).eval()
 
 
@@ -211,14 +213,24 @@ def load_npz(path: str) -> Tuple[dict, dict]:
     return unflatten_tree(flat), meta
 
 
-def load_model(path: str, **overrides) -> Tuple[YoloNano, YoloNanoConfig,
-                                                 dict]:
-    """A folded .npz artifact → (YoloNano on the CPU, config, meta)."""
+def build_model(params: dict, stats: Optional[dict], cfg) -> nn.Module:
+    """The detector of cfg's family (YOLO-Nano or NanoDet-Plus) from a JAX
+    tree; `stats` None for a folded tree."""
+    if isinstance(cfg, NanoDetPlusConfig):
+        from yolo_nano_tpu_torch.models.nanodet_plus import build_nanodet_plus
+
+        return build_nanodet_plus(params, stats, cfg)
+    return build_yolo_nano(params, stats, cfg)
+
+
+def load_model(path: str, **overrides) -> Tuple[nn.Module, object, dict]:
+    """A folded .npz artifact → (its family's model on the CPU, config,
+    meta): NanoDet-Plus where the meta's "model" says so, else YOLO-Nano."""
     tree, meta = load_npz(path)
     if not meta.get("folded", False):
         raise ValueError(f"{path} holds an unfolded tree without BN stats")
     cfg = config_from_json(meta, **overrides)
-    return build_yolo_nano(tree, None, cfg), cfg, meta
+    return build_model(tree, None, cfg), cfg, meta
 
 
 # ---------------------------------------------------------------------------

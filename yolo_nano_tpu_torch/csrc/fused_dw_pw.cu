@@ -52,6 +52,18 @@
 // 2 x 63,360 = 222,080 bytes of the 232,448 a block may use.
 // Widths whose weights and smallest tile do not fit (C = Cout above 216)
 // are refused.
+//
+// The depthwise size K is a compile-time parameter: K = 3 above
+// (fused_dw_pw_kernel), K = 5 for NanoDet-Plus's stride-1 pairs
+// (fused_dw_pw5_kernel, with its own tile rule; the exports take K): a
+// region of (th+4) x (tw+4) cells, 25 taps a channel
+// (par holds 25*C taps), each thread of the depthwise sliding a 5x5 window
+// along its row. Where the weights and the smallest tile's double-buffered
+// region do not fit (C = 256, Cout = 128: the GhostBottleneck shortcut's
+// weights alone take 139 KB), the K = 5 kernel streams the weights
+// through mma_tf32::gemm's chunks instead (RESIDENT false; C and Cout then
+// multiples of 8, the weights 16-byte aligned), whose waits then also wait
+// on the next region's copies.
 
 #include <cstdint>
 
@@ -71,13 +83,18 @@ constexpr int kSMs = 132;  // streaming multiprocessors of an H100 SXM
 struct Layout {
   int P, cells, ldr, ldd, w, par, d;  // floats
   size_t region;                      // bytes of one region buffer
-  __host__ __device__ Layout(int tw, int th, int C, int Cout) {
+  // K: the depthwise size; resident: the weights in shared memory, else
+  // the streamed chunks
+  __host__ __device__ Layout(int tw, int th, int C, int Cout, int K = 3,
+                             bool resident = true) {
     P = tw * th;
-    cells = (tw + 2) * (th + 2);
+    cells = (tw + K - 1) * (th + K - 1);
     ldr = round_up(C, 4);
     ldd = act_stride(C > Cout ? C : Cout);
-    w = round_up(C, 8) * w_stride(Cout);
-    par = round_up(10 * C + Cout, 4);  // 16-byte aligned buffers after it
+    w = resident ? round_up(C, 8) * w_stride(Cout)
+                 : ynt::mma_tf32::wbuf_floats(Cout);
+    // 16-byte aligned buffers after it
+    par = round_up((K * K + 1) * C + Cout, 4);
     d = round_up(P, 16) * ldd;
     region = static_cast<size_t>(cells) * ldr * sizeof(float);
   }
@@ -136,25 +153,73 @@ __device__ __forceinline__ void depthwise(const float* src, int ldr, int tw,
   }
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
-    fused_dw_pw_kernel(const float* __restrict__ x,
-                       const float* __restrict__ dw_w,
-                       const float* __restrict__ dw_b,
-                       const float* __restrict__ pw_w,
-                       const float* __restrict__ pw_b, float* __restrict__ out,
-                       int B, int H, int W, int C, int Cout, int act_mid,
-                       int act_out, int tw, int th, bool vec_in,
-                       bool vec_w, bool vec_out) {
+// Depthwise KxK (K = 5; + bias, act_mid) of a (th+K-1) x (tw+K-1) region
+// into dst as `depthwise` does: a thread takes one channel of one output row
+// and slides the KxK window along it (K new loads a pixel), its FMAs in the
+// order dy, then dx, from 0, then the bias.
+template <int K>
+__device__ __forceinline__ void depthwise_k(const float* src, int ldr, int tw,
+                                            int th, int C, const float* w,
+                                            const float* b, int act_mid,
+                                            float* dst, int ldd) {
+  const int cp = round_up(C, 8);
+  const int row = (tw + K - 1) * ldr;
+  for (int i = threadIdx.x; i < th * cp; i += blockDim.x) {
+    const int c = i % cp;
+    const int y = i / cp;
+    float* out = dst + y * tw * ldd + c;
+    if (c >= C) {
+      for (int px = 0; px < tw; ++px) out[px * ldd] = 0.f;
+      continue;
+    }
+    float tap[K * K];
+#pragma unroll
+    for (int k = 0; k < K * K; ++k) tap[k] = w[k * C + c];
+    const float bias = b[c];
+    const float* s = src + y * row + c;
+    float win[K][K];  // win[dx][dy]: window column dx, row dy
+#pragma unroll
+    for (int dx = 0; dx < K - 1; ++dx)
+#pragma unroll
+      for (int dy = 0; dy < K; ++dy) win[dx][dy] = s[dy * row + dx * ldr];
+    for (int px = 0; px < tw; ++px) {
+      const float* sr = s + (px + K - 1) * ldr;
+#pragma unroll
+      for (int dy = 0; dy < K; ++dy) win[K - 1][dy] = sr[dy * row];
+      float acc = 0.f;
+#pragma unroll
+      for (int dy = 0; dy < K; ++dy)
+#pragma unroll
+        for (int dx = 0; dx < K; ++dx)
+          acc = fmaf(win[dx][dy], tap[dy * K + dx], acc);
+      out[px * ldd] = ynt::activate(acc + bias, act_mid);
+#pragma unroll
+      for (int dx = 0; dx < K - 1; ++dx)
+#pragma unroll
+        for (int dy = 0; dy < K; ++dy) win[dx][dy] = win[dx + 1][dy];
+    }
+  }
+}
+
+// The kernel's body at depthwise size K, weights resident or streamed.
+template <int K, bool RESIDENT>
+__device__ __forceinline__ void dw_pw_body(
+    const float* __restrict__ x, const float* __restrict__ dw_w,
+    const float* __restrict__ dw_b, const float* __restrict__ pw_w,
+    const float* __restrict__ pw_b, float* __restrict__ out, int B, int H,
+    int W, int C, int Cout, int act_mid, int act_out, int tw, int th,
+    bool vec_in, bool vec_w, bool vec_out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout lay(tw, th, C, Cout);
-  float* Ws = reinterpret_cast<float*>(smem);
-  float* par = Ws + lay.w;  // depthwise taps [9][C], dw_b [C], pw_b [Cout]
+  constexpr int kHalo = (K - 1) / 2;
+  const Layout lay(tw, th, C, Cout, K, RESIDENT);
+  float* Ws = reinterpret_cast<float*>(smem);  // or the streamed chunks
+  float* par = Ws + lay.w;  // depthwise taps [K*K][C], dw_b [C], pw_b [Cout]
   float* D = par + lay.par;
   float* regions = D + lay.d;
   const int region_elems = lay.cells * lay.ldr;
   const int ldr = lay.ldr;
   const int ldd = lay.ldd;
-  const int rw = tw + 2;
+  const int rw = tw + K - 1;
   const int tiles_x = (W + tw - 1) / tw;
   const int tiles_img = tiles_x * ((H + th - 1) / th);
   const int tiles = B * tiles_img;
@@ -163,8 +228,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   // cp.async copies (zeros outside the image), or plain loads where x's
   // pixels are not 16-byte aligned
   auto fill = [&](int t, float* buf) {
-    const int oy0 = t % tiles_img / tiles_x * th - 1;
-    const int ox0 = t % tiles_x * tw - 1;
+    const int oy0 = t % tiles_img / tiles_x * th - kHalo;
+    const int ox0 = t % tiles_x * tw - kHalo;
     const float* xn = x + static_cast<int64_t>(t / tiles_img) * H * W * C;
     auto pixel = [&](int cy, int cx) -> int64_t {
       const int iy = oy0 + cy;
@@ -197,7 +262,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int kp = round_up(C, 8);
   const int np = round_up(Cout, 8);
   const int ldw = w_stride(Cout);
-  if (vec_w) {
+  if (!RESIDENT) {
+    // streamed by the product, chunk by chunk
+  } else if (vec_w) {
     for_each_cell(kp, 1, np / 4, [&](int k, int, int v) {
       const bool in = k < C && v * 4 < Cout;
       ynt::mma_tf32::cp_async_zfill<16>(
@@ -212,9 +279,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
   }
   ynt::mma_tf32::cp_async_commit();
-  for (int i = threadIdx.x; i < 10 * C + Cout; i += blockDim.x)
-    par[i] = i < 9 * C ? dw_w[i] : i < 10 * C ? dw_b[i - 9 * C]
-                                              : pw_b[i - 10 * C];
+  constexpr int kTaps = K * K;
+  for (int i = threadIdx.x; i < (kTaps + 1) * C + Cout; i += blockDim.x)
+    par[i] = i < kTaps * C         ? dw_w[i]
+             : i < (kTaps + 1) * C ? dw_b[i - kTaps * C]
+                                   : pw_b[i - (kTaps + 1) * C];
 
   for (int it = 0; t < tiles; ++it, t += gridDim.x) {
     const float* cur = regions + (it & 1) * region_elems;
@@ -225,13 +294,19 @@ __global__ void __launch_bounds__(kThreads, 1)
     ynt::mma_tf32::cp_async_wait<1>();   // all but the next tile's region
     __syncthreads();  // ... and the last tile's stores are done with D
 
-    depthwise(cur, ldr, tw, th, C, par, par + 9 * C, act_mid, D, ldd);
+    if constexpr (K == 3)
+      depthwise(cur, ldr, tw, th, C, par, par + 9 * C, act_mid, D, ldd);
+    else
+      depthwise_k<K>(cur, ldr, tw, th, C, par, par + kTaps * C, act_mid, D,
+                     ldd);
     __syncthreads();
 
-    ynt::mma_tf32::gemm<true>(
-        lay.P, C, Cout, D, ldd, Ws, nullptr, true,
+    ynt::mma_tf32::gemm<RESIDENT>(
+        lay.P, C, Cout, D, ldd, RESIDENT ? Ws : pw_w,
+        RESIDENT ? nullptr : Ws, RESIDENT,
         [&](int m, int n, float v) {
-          D[m * ldd + n] = ynt::activate(v + par[10 * C + n], act_out);
+          D[m * ldd + n] =
+              ynt::activate(v + par[(kTaps + 1) * C + n], act_out);
         });
     __syncthreads();
 
@@ -262,18 +337,60 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-int launch(const float* x, const float* dw_w, const float* dw_b,
+__global__ void __launch_bounds__(kThreads, 1)
+    fused_dw_pw_kernel(const float* __restrict__ x,
+                       const float* __restrict__ dw_w,
+                       const float* __restrict__ dw_b,
+                       const float* __restrict__ pw_w,
+                       const float* __restrict__ pw_b, float* __restrict__ out,
+                       int B, int H, int W, int C, int Cout, int act_mid,
+                       int act_out, int tw, int th, bool vec_in,
+                       bool vec_w, bool vec_out) {
+  dw_pw_body<3, true>(x, dw_w, dw_b, pw_w, pw_b, out, B, H, W, C, Cout,
+                      act_mid, act_out, tw, th, vec_in, vec_w, vec_out);
+}
+
+template <bool RESIDENT>
+__global__ void __launch_bounds__(kThreads, 1)
+    fused_dw_pw5_kernel(const float* __restrict__ x,
+                        const float* __restrict__ dw_w,
+                        const float* __restrict__ dw_b,
+                        const float* __restrict__ pw_w,
+                        const float* __restrict__ pw_b,
+                        float* __restrict__ out, int B, int H, int W, int C,
+                        int Cout, int act_mid, int act_out, int tw, int th,
+                        bool vec_in, bool vec_w, bool vec_out) {
+  dw_pw_body<5, RESIDENT>(x, dw_w, dw_b, pw_w, pw_b, out, B, H, W, C, Cout,
+                          act_mid, act_out, tw, th, vec_in, vec_w, vec_out);
+}
+
+// Whether the K = 5 kernel keeps its weights resident: where they and the
+// smallest tile's two regions fit.
+bool resident5(int C, int Cout) {
+  return Layout(1, 1, C, Cout, 5, true).bytes() <= kSmemMax;
+}
+
+int launch(int K, const float* x, const float* dw_w, const float* dw_b,
            const float* pw_w, const float* pw_b, float* out, int B, int H,
            int W, int C, int Cout, int act_mid, int act_out, int tw, int th,
            cudaStream_t stream) {
   // mma_tf32::gemm's warps cover N = Cout up to kWarps * kNTW * 8 = 512
-  if (tw < 1 || th < 1 || C < 1 ||
+  if ((K != 3 && K != 5) || tw < 1 || th < 1 || C < 1 ||
       round_up(Cout, 8) > ynt::mma_tf32::kWarps * ynt::mma_tf32::kNTW * 8)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = Layout(tw, th, C, Cout).bytes();
+  const bool resident = K == 3 || resident5(C, Cout);
+  // streamed weights: whole 16-byte chunk rows of [C][Cout]
+  if (!resident && (C % 8 || Cout % 8 ||
+                    reinterpret_cast<uintptr_t>(pw_w) % 16))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = Layout(tw, th, C, Cout, K, resident).bytes();
   if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
+  const void* fn =
+      K == 3     ? reinterpret_cast<const void*>(fused_dw_pw_kernel)
+      : resident ? reinterpret_cast<const void*>(fused_dw_pw5_kernel<true>)
+                 : reinterpret_cast<const void*>(fused_dw_pw5_kernel<false>);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_dw_pw_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   int device = 0, sms = 0;
@@ -291,9 +408,18 @@ int launch(const float* x, const float* dw_w, const float* dw_b,
   const bool vec_out =
       Cout % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
   const int grid = static_cast<int>(tiles < sms ? tiles : sms);
-  fused_dw_pw_kernel<<<grid, kThreads, smem, stream>>>(
-      x, dw_w, dw_b, pw_w, pw_b, out, B, H, W, C, Cout, act_mid, act_out, tw,
-      th, vec_in, vec_w, vec_out);
+  if (K == 3)
+    fused_dw_pw_kernel<<<grid, kThreads, smem, stream>>>(
+        x, dw_w, dw_b, pw_w, pw_b, out, B, H, W, C, Cout, act_mid, act_out,
+        tw, th, vec_in, vec_w, vec_out);
+  else if (resident)
+    fused_dw_pw5_kernel<true><<<grid, kThreads, smem, stream>>>(
+        x, dw_w, dw_b, pw_w, pw_b, out, B, H, W, C, Cout, act_mid, act_out,
+        tw, th, vec_in, vec_w, vec_out);
+  else
+    fused_dw_pw5_kernel<false><<<grid, kThreads, smem, stream>>>(
+        x, dw_w, dw_b, pw_w, pw_b, out, B, H, W, C, Cout, act_mid, act_out,
+        tw, th, vec_in, vec_w, vec_out);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -318,25 +444,52 @@ double dw_pw_tile_cost(int tw, int th, int B, int H, int W, int Cout) {
                   kRowRounds * th);
 }
 
+// The K = 5 kernel's cost model (fused_dw_pw_tile at K = 5):
+// dw_pw_tile_cost with the 5x5 region's cells and kPixelRounds5 per tile
+// pixel for the 25-tap depthwise. Not fitted to a sweep: no cell runs the
+// f32 5x5 pairs.
+constexpr double kPixelRounds5 = 0.01;
+
+double dw_pw5_tile_cost(int tw, int th, int B, int H, int W, int Cout) {
+  const int per_round = ynt::mma_tf32::kWarps /
+                        ynt::mma_tf32::warps_n(Cout) * ynt::mma_tf32::kWM;
+  const int rounds = ((tw * th + 15) / 16 + per_round - 1) / per_round;
+  const int64_t tiles = static_cast<int64_t>(B) * ((H + th - 1) / th) *
+                        ((W + tw - 1) / tw);
+  const int64_t waves = (tiles + kSMs - 1) / kSMs;
+  return waves * (rounds + kCellRounds * (tw + 4) * (th + 4) +
+                  kRowRounds * th + kPixelRounds5 * tw * th);
+}
+
 }  // namespace
 
-// Shared memory of one thread block, in bytes.
-extern "C" size_t fused_dw_pw_smem_bytes(int tw, int th, int C, int Cout) {
-  return Layout(tw, th, C, Cout).bytes();
+// The exports take the depthwise size K, 3 or 5; each K is a kernel of its
+// own (fused_dw_pw_kernel, fused_dw_pw5_kernel) with its own tile rule.
+
+// Shared memory of one thread block, in bytes (at K = 5 with the weights
+// resident or streamed, as the launch takes them); 0 for another K.
+extern "C" size_t fused_dw_pw_smem_bytes(int tw, int th, int C, int Cout,
+                                         int K) {
+  if (K != 3 && K != 5) return 0;
+  return Layout(tw, th, C, Cout, K, K == 3 || resident5(C, Cout)).bytes();
 }
 
 // Output tile (tw columns x th rows) of one launch: of the tiles up to
 // 64 x 64, and no larger than the image, whose shared memory fits, the one
-// of least dw_pw_tile_cost (the first found on a tie, in order of tw, then
-// th). Returns 0 and leaves tw, th alone if none fits.
-extern "C" int fused_dw_pw_tile(int B, int H, int W, int C, int Cout,
+// of least dw_pw_tile_cost (K = 3) or dw_pw5_tile_cost (K = 5), the first
+// found on a tie, in order of tw, then th. Returns 0 and leaves tw, th
+// alone if none fits.
+extern "C" int fused_dw_pw_tile(int B, int H, int W, int C, int Cout, int K,
                                 int* tw, int* th) {
+  if (K != 3 && K != 5) return 0;
+  const bool resident = K == 3 || resident5(C, Cout);
   double best = 0.0;
   int found = 0;
   for (int w = 1; w <= 64 && w <= W; ++w) {
     for (int h = 1; h <= 64 && h <= H; ++h) {
-      if (Layout(w, h, C, Cout).bytes() > kSmemMax) continue;
-      const double cost = dw_pw_tile_cost(w, h, B, H, W, Cout);
+      if (Layout(w, h, C, Cout, K, resident).bytes() > kSmemMax) continue;
+      const double cost = K == 3 ? dw_pw_tile_cost(w, h, B, H, W, Cout)
+                                 : dw_pw5_tile_cost(w, h, B, H, W, Cout);
       if (!found || cost < best) {
         found = 1;
         best = cost;
@@ -348,16 +501,16 @@ extern "C" int fused_dw_pw_tile(int B, int H, int W, int C, int Cout,
   return found;
 }
 
-// x [B,H,W,C] -> out [B,H,W,Cout], NHWC, all f32; dw_w [3,3,C], dw_b [C],
+// x [B,H,W,C] -> out [B,H,W,Cout], NHWC, all f32; dw_w [K,K,C], dw_b [C],
 // pw_w [C,Cout], pw_b [Cout]. One persistent block per SM walks the tw x th
 // output tiles.
 extern "C" int fused_dw_pw_f32(const void* x, const void* dw_w,
                                const void* dw_b, const void* pw_w,
                                const void* pw_b, void* out, int B, int H,
-                               int W, int C, int Cout, int act_mid,
+                               int W, int C, int Cout, int K, int act_mid,
                                int act_out, int tw, int th, void* stream) {
   return launch(
-      static_cast<const float*>(x), static_cast<const float*>(dw_w),
+      K, static_cast<const float*>(x), static_cast<const float*>(dw_w),
       static_cast<const float*>(dw_b), static_cast<const float*>(pw_w),
       static_cast<const float*>(pw_b), static_cast<float*>(out), B, H, W, C,
       Cout, act_mid, act_out, tw, th, static_cast<cudaStream_t>(stream));

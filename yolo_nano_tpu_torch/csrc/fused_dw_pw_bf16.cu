@@ -66,6 +66,18 @@
 //        the image.
 // Cout above 256 takes the product's wide variant (8 n8 tiles a warp, one
 // block an SM); Cout up to 512 whose weights and smallest tile fit.
+//
+// The depthwise size K is a compile-time parameter: K = 3 above
+// (fused_dw_pw_bf16_kernel), K = 5 for NanoDet-Plus's stride-1 pairs
+// (fused_dw_pw5_bf16_kernel, with its own tile rule; the exports take K):
+// at C = Cout = 128 (the heads) and C = 256, Cout = 128 (the
+// GhostBottleneck shortcuts, no activation). The region is (th+4) x (tw+4)
+// cells and par holds 25*C taps. Its depthwise (depthwise5) keeps
+// a channel pair's 25 taps in registers and, for a step of kPx5 pixels,
+// loads each of the 5 window rows' kPx5 + 4 cells once and sums the step's
+// outputs from them (a sliding 5x5 window would hold 4 x 5 pairs more
+// registers than two blocks an SM allow); its FMAs run in the K = 3 order,
+// dy, then dx, from 0, then the bias.
 
 #include <cstdint>
 
@@ -89,15 +101,16 @@ struct Layout {
   int P, cells, ldr, ldd, ldw, kp, np;
   int par;               // floats
   int w, d, region;      // bf16 elements
-  __host__ __device__ Layout(int tw, int th, int C, int Cout) {
+  __host__ __device__ Layout(int tw, int th, int C, int Cout, int K = 3) {
     P = tw * th;
-    cells = (tw + 2) * (th + 2);
+    cells = (tw + K - 1) * (th + K - 1);
     ldr = round_up(C, 8);
     kp = round_up(C, 16);
     np = round_up(Cout, 8);
     ldw = mb::w_stride(kp);
     ldd = act_stride(C > Cout ? C : Cout);
-    par = round_up(10 * C + Cout + 1, 4);  // 16-byte aligned buffers after it
+    // 16-byte aligned buffers after it
+    par = round_up((K * K + 1) * C + Cout + 1, 4);
     w = np * ldw;
     d = round_up(P, 16) * ldd;
     region = cells * ldr;
@@ -198,6 +211,74 @@ __device__ __forceinline__ void depthwise(const bf16* __restrict__ src,
                                  i % pad * 2) = 0u;
 }
 
+constexpr int kPx5 = 4;  // pixels of a depthwise5 step
+
+// Depthwise 5x5 (+ bias, act, rounded to bf16) of a (th+4) x (tw+4) region
+// into dst, as `depthwise` lays it out (module comment): a thread keeps a
+// channel pair's taps in registers and walks segments of tile rows, kPx5
+// pixels a step; for each window row dy it loads the step's kPx5 + 4 cells
+// of that row once and adds their products to the step's sums.
+__device__ __forceinline__ void depthwise5(const bf16* __restrict__ src,
+                                           int ldr, int tw, int th, int C,
+                                           const float* w, const float* b,
+                                           int act, bf16* __restrict__ dst,
+                                           int ldd) {
+  constexpr int K = 5;
+  const int pairs = (C + 1) / 2;
+  const int groups = max(1, static_cast<int>(blockDim.x) / pairs);
+  const int segs = row_segments(tw);
+  const int seg = (tw + segs - 1) / segs;
+  const int row = (tw + K - 1) * ldr;
+  for (int i = threadIdx.x; i < groups * pairs; i += blockDim.x) {
+    const int c = i % pairs * 2;
+    const bool odd = c + 1 >= C;
+    float2 tap[K * K];
+#pragma unroll
+    for (int k = 0; k < K * K; ++k)
+      tap[k] = make_float2(w[k * C + c], odd ? 0.f : w[k * C + c + 1]);
+    const float2 bias = make_float2(b[c], odd ? 0.f : b[c + 1]);
+    for (int item = i / pairs; item < th * segs; item += groups) {
+      const int y = item / segs;
+      const int x0 = item % segs * seg;
+      const int x1 = min(x0 + seg, tw);
+      const bf16* sp = src + (y * (tw + K - 1) + x0) * ldr + c;
+      bf16* op = dst + (y * tw + x0) * ldd + c;
+      for (int x = x0; x < x1; x += kPx5, sp += kPx5 * ldr, op += kPx5 * ldd) {
+        const int n = min(kPx5, x1 - x);
+        float ax[kPx5], ay[kPx5];
+#pragma unroll
+        for (int q = 0; q < kPx5; ++q) ax[q] = ay[q] = 0.f;
+#pragma unroll
+        for (int dy = 0; dy < K; ++dy) {
+          float2 r[kPx5 + K - 1];
+#pragma unroll
+          for (int q = 0; q < kPx5 + K - 1; ++q)
+            r[q] = q < n + K - 1 ? load2(sp + q * ldr + dy * row)
+                                 : make_float2(0.f, 0.f);
+#pragma unroll
+          for (int q = 0; q < kPx5; ++q)
+#pragma unroll
+            for (int dx = 0; dx < K; ++dx) {
+              ax[q] = fmaf(r[q + dx].x, tap[dy * K + dx].x, ax[q]);
+              ay[q] = fmaf(r[q + dx].y, tap[dy * K + dx].y, ay[q]);
+            }
+        }
+#pragma unroll
+        for (int q = 0; q < kPx5; ++q)
+          if (q < n)
+            *reinterpret_cast<bf162*>(op + q * ldd) =
+                __floats2bfloat162_rn(ynt::activate(ax[q] + bias.x, act),
+                                      ynt::activate(ay[q] + bias.y, act));
+      }
+    }
+  }
+  // the pad columns 2 * pairs .. round16(C) - 1
+  const int pad = (round_up(C, 16) - 2 * pairs) / 2;  // words a row
+  for (int i = threadIdx.x; i < tw * th * pad; i += blockDim.x)
+    *reinterpret_cast<uint32_t*>(dst + i / pad * ldd + 2 * pairs +
+                                 i % pad * 2) = 0u;
+}
+
 // The bf16 pair (lo, hi) as one 32-bit word, and back.
 __device__ __forceinline__ uint32_t pack(bf16 lo, bf16 hi) {
   return __bfloat16_as_ushort(lo) |
@@ -254,25 +335,25 @@ __device__ __forceinline__ void transpose_weights(const bf16* __restrict__ pw_w,
   }
 }
 
-// v_in, v_out: channels a copy (8: 16 bytes; 2: 4 bytes; 1: single loads or
-// stores), as x's and out's alignment and C, Cout allow.
-template <int NTW>
-__global__ void __launch_bounds__(kThreads, NTW == mb::kNTW ? 2 : 1)
-    fused_dw_pw_bf16_kernel(const bf16* __restrict__ x,
-                            const float* __restrict__ dw_w,
-                            const float* __restrict__ dw_b,
-                            const bf16* __restrict__ pw_w,
-                            const float* __restrict__ pw_b,
-                            bf16* __restrict__ out, int B, int H, int W,
-                            int C, int Cout, int act_mid, int act_out, int tw,
-                            int th, int v_in, int v_out) {
+// The kernel's body at depthwise size K. v_in, v_out: channels a copy (8:
+// 16 bytes; 2: 4 bytes; 1: single loads or stores), as x's and out's
+// alignment and C, Cout allow.
+template <int K, int NTW>
+__device__ __forceinline__ void dw_pw_body(
+    const bf16* __restrict__ x, const float* __restrict__ dw_w,
+    const float* __restrict__ dw_b, const bf16* __restrict__ pw_w,
+    const float* __restrict__ pw_b, bf16* __restrict__ out, int B, int H,
+    int W, int C, int Cout, int act_mid, int act_out, int tw, int th,
+    int v_in, int v_out) {
   extern __shared__ __align__(16) unsigned char smem[];
-  const Layout lay(tw, th, C, Cout);
+  constexpr int kHalo = (K - 1) / 2;
+  constexpr int kTaps = K * K;
+  const Layout lay(tw, th, C, Cout, K);
   float* par = reinterpret_cast<float*>(smem);  // taps, dw_b, pw_b, 0
   bf16* Wt = reinterpret_cast<bf16*>(par + lay.par);
   bf16* D = Wt + lay.w;
   bf16* regions = D + lay.d;
-  const int rw = tw + 2;
+  const int rw = tw + K - 1;
   const int ldr = lay.ldr;
   const int ldd = lay.ldd;
   const int tiles_x = (W + tw - 1) / tw;
@@ -282,8 +363,8 @@ __global__ void __launch_bounds__(kThreads, NTW == mb::kNTW ? 2 : 1)
   // the region of tile t (image, tile row, tile column) into buf, zeros
   // outside the image and in an odd C's pad channel; one cp.async group
   auto fill = [&](int t, bf16* buf) {
-    const int oy0 = t % tiles_img / tiles_x * th - 1;
-    const int ox0 = t % tiles_x * tw - 1;
+    const int oy0 = t % tiles_img / tiles_x * th - kHalo;
+    const int ox0 = t % tiles_x * tw - kHalo;
     const bf16* xn = x + static_cast<int64_t>(t / tiles_img) * H * W * C;
     auto pixel = [&](int cy, int cx) -> int64_t {
       const int iy = oy0 + cy;
@@ -318,11 +399,11 @@ __global__ void __launch_bounds__(kThreads, NTW == mb::kNTW ? 2 : 1)
   // product reads beside an odd Cout's last column), in one group with the
   // first region; the weights transposed while they arrive
   for (int i = threadIdx.x; i < lay.par; i += blockDim.x) {
-    if (i < 10 * C + Cout)
+    if (i < (kTaps + 1) * C + Cout)
       mb::cp_async_zfill<4>(par + i,
-                            i < 9 * C    ? dw_w + i
-                            : i < 10 * C ? dw_b + i - 9 * C
-                                         : pw_b + i - 10 * C,
+                            i < kTaps * C         ? dw_w + i
+                            : i < (kTaps + 1) * C ? dw_b + i - kTaps * C
+                                                  : pw_b + i - (kTaps + 1) * C,
                             true);
     else
       par[i] = 0.f;
@@ -343,12 +424,16 @@ __global__ void __launch_bounds__(kThreads, NTW == mb::kNTW ? 2 : 1)
     mb::cp_async_wait<1>();   // all but the next tile's region
     __syncthreads();  // ... and the last tile's stores are done with D
 
-    depthwise(cur, ldr, tw, th, C, par, par + 9 * C, act_mid, D, ldd);
+    if constexpr (K == 3)
+      depthwise(cur, ldr, tw, th, C, par, par + 9 * C, act_mid, D, ldd);
+    else
+      depthwise5(cur, ldr, tw, th, C, par, par + kTaps * C, act_mid, D, ldd);
     __syncthreads();
 
     // the product, its epilogue over its own rows of D
     mb::gemm<true, true, NTW>(
-        lay.P, C, Cout, D, ldd, Wt, nullptr, true, par + 10 * C, nullptr,
+        lay.P, C, Cout, D, ldd, Wt, nullptr, true, par + (kTaps + 1) * C,
+        nullptr,
         [&](int m, int, int n, float v0, float v1) {
           *reinterpret_cast<bf162*>(D + m * ldd + n) = __floats2bfloat162_rn(
               ynt::activate(v0, act_out), ynt::activate(v1, act_out));
@@ -402,10 +487,44 @@ __global__ void __launch_bounds__(kThreads, NTW == mb::kNTW ? 2 : 1)
   }
 }
 
-// The kernel of a launch of Cout output channels: 4 n8 tiles a warp up to
-// Cout = 256, else the wide variant's 8.
-const void* kernel_for(int Cout) {
-  return mb::ntw_for(Cout) == mb::kNTW
+template <int NTW>
+__global__ void __launch_bounds__(kThreads, NTW == mb::kNTW ? 2 : 1)
+    fused_dw_pw_bf16_kernel(const bf16* __restrict__ x,
+                            const float* __restrict__ dw_w,
+                            const float* __restrict__ dw_b,
+                            const bf16* __restrict__ pw_w,
+                            const float* __restrict__ pw_b,
+                            bf16* __restrict__ out, int B, int H, int W,
+                            int C, int Cout, int act_mid, int act_out, int tw,
+                            int th, int v_in, int v_out) {
+  dw_pw_body<3, NTW>(x, dw_w, dw_b, pw_w, pw_b, out, B, H, W, C, Cout,
+                     act_mid, act_out, tw, th, v_in, v_out);
+}
+
+template <int NTW>
+__global__ void __launch_bounds__(kThreads, NTW == mb::kNTW ? 2 : 1)
+    fused_dw_pw5_bf16_kernel(const bf16* __restrict__ x,
+                             const float* __restrict__ dw_w,
+                             const float* __restrict__ dw_b,
+                             const bf16* __restrict__ pw_w,
+                             const float* __restrict__ pw_b,
+                             bf16* __restrict__ out, int B, int H, int W,
+                             int C, int Cout, int act_mid, int act_out,
+                             int tw, int th, int v_in, int v_out) {
+  dw_pw_body<5, NTW>(x, dw_w, dw_b, pw_w, pw_b, out, B, H, W, C, Cout,
+                     act_mid, act_out, tw, th, v_in, v_out);
+}
+
+// The kernel of a launch of depthwise size K and Cout output channels: 4 n8
+// tiles a warp up to Cout = 256, else the wide variant's 8.
+const void* kernel_for(int Cout, int K = 3) {
+  const bool narrow = mb::ntw_for(Cout) == mb::kNTW;
+  if (K == 5)
+    return narrow ? reinterpret_cast<const void*>(
+                        fused_dw_pw5_bf16_kernel<mb::kNTW>)
+                  : reinterpret_cast<const void*>(
+                        fused_dw_pw5_bf16_kernel<mb::kNTWWide>);
+  return narrow
              ? reinterpret_cast<const void*>(fused_dw_pw_bf16_kernel<mb::kNTW>)
              : reinterpret_cast<const void*>(
                    fused_dw_pw_bf16_kernel<mb::kNTWWide>);
@@ -413,8 +532,8 @@ const void* kernel_for(int Cout) {
 
 // Blocks of the kernel that fit on one SM at once at this shared memory, as
 // the runtime reports it (registers and shared memory); 0 on an error.
-int blocks_per_sm(int Cout, size_t smem) {
-  const void* fn = kernel_for(Cout);
+int blocks_per_sm(int Cout, size_t smem, int K = 3) {
+  const void* fn = kernel_for(Cout, K);
   if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                            static_cast<int>(kSmemMax)) != cudaSuccess)
     return 0;
@@ -445,20 +564,29 @@ constexpr double kSegmentSteps = 0.5;
 constexpr double kShare = 0.2;
 constexpr double kBlockSteps = 20.0;
 
+// The K = 5 kernel's depthwise costs kPixelSteps5 a tile pixel per 16
+// channels where the K = 3 one's costs kPixelSteps, and its row segments
+// kSegmentSteps5: its 25 taps and 5 row loads a step; from the operations'
+// ratio, not fitted to a sweep.
+constexpr double kPixelSteps5 = kPixelSteps * 25.0 / 9.0;
+constexpr double kSegmentSteps5 = kSegmentSteps * 25.0 / 9.0;
+
 double tile_cost(int tw, int th, int B, int H, int W, int C, int Cout,
-                 int occ) {
-  const Layout lay(tw, th, C, Cout);
+                 int occ, int K = 3) {
+  const Layout lay(tw, th, C, Cout, K);
   const int ntw_max = mb::ntw_for(Cout);
   const int wn = mb::warps_n(Cout, ntw_max);
   const int ntw = (lay.np / 8 + wn - 1) / wn;
   const int per_round = mb::kWarps / wn * mb::kWM;  // m16 tiles a round
   const int rounds = ((lay.P + 15) / 16 + per_round - 1) / per_round;
   const int k16 = lay.kp / 16;
+  const double pixel = K == 3 ? kPixelSteps * lay.P * (k16 + lay.np / 16 + 1)
+                              : lay.P * (kPixelSteps5 * k16 +
+                                         kPixelSteps * (lay.np / 16 + 1));
   const double steps = rounds * mb::kWM * ntw * k16 +
-                       kCellSteps * lay.cells * k16 +
-                       kPixelSteps * lay.P * (k16 + lay.np / 16 + 1) +
-                       kSegmentSteps * th * row_segments(tw) *
-                           (((C + 1) / 2 + 31) / 32);
+                       kCellSteps * lay.cells * k16 + pixel +
+                       (K == 3 ? kSegmentSteps : kSegmentSteps5) * th *
+                           row_segments(tw) * (((C + 1) / 2 + 31) / 32);
   const int64_t per_sm = (tile_count(tw, th, B, H, W) + kSMs - 1) / kSMs;
   const int64_t blocks = per_sm < occ ? per_sm : occ;  // resident on an SM
   const int64_t waves = (per_sm + occ - 1) / occ;
@@ -468,42 +596,26 @@ double tile_cost(int tw, int th, int B, int H, int W, int C, int Cout,
          kBlockSteps * blocks;
 }
 
-}  // namespace
-
-// Shared memory of one thread block, in bytes.
-extern "C" size_t fused_dw_pw_bf16_smem_bytes(int tw, int th, int C,
-                                              int Cout) {
-  return Layout(tw, th, C, Cout).bytes();
-}
-
-// Blocks an SM holds at once with this tile (the runtime's occupancy); 0 if
-// none fits or on an error.
-extern "C" int fused_dw_pw_bf16_blocks_per_sm(int tw, int th, int C,
-                                              int Cout) {
-  const size_t smem = Layout(tw, th, C, Cout).bytes();
+int blocks_per_sm_at(int tw, int th, int C, int Cout, int K) {
+  const size_t smem = Layout(tw, th, C, Cout, K).bytes();
   if (smem > kSmemMax || Cout < 1 || Cout > mb::kNMax) return 0;
-  return blocks_per_sm(Cout, smem);
+  return blocks_per_sm(Cout, smem, K);
 }
 
-// Output tile (tw columns x th rows) of one launch: of the tiles up to
-// 32 x 32, no larger than the image, whose shared memory fits, the one of
-// least tile_cost (the first found on a tie, in order of tw, then th).
-// Returns 0 and leaves tw, th alone if none fits.
-extern "C" int fused_dw_pw_bf16_tile(int B, int H, int W, int C, int Cout,
-                                     int* tw, int* th) {
+int tile_of(int K, int B, int H, int W, int C, int Cout, int* tw, int* th) {
   double best = 0.0;
   int found = 0;
   int occ_size = -1, occ = 0;  // the occupancy of the last size asked
   for (int w = 1; w <= 32 && w <= W; ++w) {
     for (int h = 1; h <= 32 && h <= H; ++h) {
-      const size_t smem = Layout(w, h, C, Cout).bytes();
+      const size_t smem = Layout(w, h, C, Cout, K).bytes();
       if (smem > kSmemMax) continue;
       if (static_cast<int>(smem) != occ_size) {
         occ_size = static_cast<int>(smem);
-        occ = fused_dw_pw_bf16_blocks_per_sm(w, h, C, Cout);
+        occ = blocks_per_sm_at(w, h, C, Cout, K);
       }
       if (occ < 1) continue;
-      const double cost = tile_cost(w, h, B, H, W, C, Cout, occ);
+      const double cost = tile_cost(w, h, B, H, W, C, Cout, occ, K);
       if (!found || cost < best) {
         found = 1;
         best = cost;
@@ -515,21 +627,18 @@ extern "C" int fused_dw_pw_bf16_tile(int B, int H, int W, int C, int Cout,
   return found;
 }
 
-// x [B,H,W,C] -> out [B,H,W,Cout], NHWC, bf16; dw_w [3,3,C], dw_b [C],
-// pw_b [Cout] f32; pw_w [C,Cout] bf16. A persistent grid of (blocks an SM)
-// x 132 blocks walks the tw x th output tiles.
-extern "C" int fused_dw_pw_bf16(const void* x, const void* dw_w,
-                                const void* dw_b, const void* pw_w,
-                                const void* pw_b, void* out, int B, int H,
-                                int W, int C, int Cout, int act_mid,
-                                int act_out, int tw, int th, void* stream) {
-  if (tw < 1 || th < 1 || C < 1 || Cout < 1 || Cout > mb::kNMax)
+int launch(int K, const void* x, const void* dw_w, const void* dw_b,
+           const void* pw_w, const void* pw_b, void* out, int B, int H,
+           int W, int C, int Cout, int act_mid, int act_out, int tw, int th,
+           void* stream) {
+  if ((K != 3 && K != 5) || tw < 1 || th < 1 || C < 1 || Cout < 1 ||
+      Cout > mb::kNMax)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = Layout(tw, th, C, Cout).bytes();
+  const size_t smem = Layout(tw, th, C, Cout, K).bytes();
   if (smem > kSmemMax) return static_cast<int>(cudaErrorInvalidValue);
   const int64_t tiles = tile_count(tw, th, B, H, W);
   if (tiles > INT32_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  const int occ = blocks_per_sm(Cout, smem);  // sets the smem attribute
+  const int occ = blocks_per_sm(Cout, smem, K);  // sets the smem attribute
   int device = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err == cudaSuccess)
@@ -554,13 +663,65 @@ extern "C" int fused_dw_pw_bf16(const void* x, const void* dw_w,
   const auto* pb = static_cast<const float*>(pw_b);
   auto* ot = static_cast<bf16*>(out);
   auto* s = static_cast<cudaStream_t>(stream);
-  if (mb::ntw_for(Cout) == mb::kNTW)
+  const bool narrow = mb::ntw_for(Cout) == mb::kNTW;
+  if (K == 3 && narrow)
     fused_dw_pw_bf16_kernel<mb::kNTW><<<grid, kThreads, smem, s>>>(
         xt, dw, db, pw, pb, ot, B, H, W, C, Cout, act_mid, act_out, tw, th,
         v_in, v_out);
-  else
+  else if (K == 3)
     fused_dw_pw_bf16_kernel<mb::kNTWWide><<<grid, kThreads, smem, s>>>(
         xt, dw, db, pw, pb, ot, B, H, W, C, Cout, act_mid, act_out, tw, th,
         v_in, v_out);
+  else if (narrow)
+    fused_dw_pw5_bf16_kernel<mb::kNTW><<<grid, kThreads, smem, s>>>(
+        xt, dw, db, pw, pb, ot, B, H, W, C, Cout, act_mid, act_out, tw, th,
+        v_in, v_out);
+  else
+    fused_dw_pw5_bf16_kernel<mb::kNTWWide><<<grid, kThreads, smem, s>>>(
+        xt, dw, db, pw, pb, ot, B, H, W, C, Cout, act_mid, act_out, tw, th,
+        v_in, v_out);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The exports take the depthwise size K, 3 or 5; each K is a kernel of its
+// own (fused_dw_pw_bf16_kernel, fused_dw_pw5_bf16_kernel) with its own tile
+// rule (tile_cost at K over the same tiles).
+
+// Shared memory of one thread block, in bytes; 0 for another K.
+extern "C" size_t fused_dw_pw_bf16_smem_bytes(int tw, int th, int C, int Cout,
+                                              int K) {
+  if (K != 3 && K != 5) return 0;
+  return Layout(tw, th, C, Cout, K).bytes();
+}
+
+// Blocks an SM holds at once with this tile (the runtime's occupancy); 0 if
+// none fits, for another K or on an error.
+extern "C" int fused_dw_pw_bf16_blocks_per_sm(int tw, int th, int C, int Cout,
+                                              int K) {
+  if (K != 3 && K != 5) return 0;
+  return blocks_per_sm_at(tw, th, C, Cout, K);
+}
+
+// Output tile (tw columns x th rows) of one launch: of the tiles up to
+// 32 x 32, no larger than the image, whose shared memory fits, the one of
+// least tile_cost (the first found on a tie, in order of tw, then th).
+// Returns 0 and leaves tw, th alone if none fits or for another K.
+extern "C" int fused_dw_pw_bf16_tile(int B, int H, int W, int C, int Cout,
+                                     int K, int* tw, int* th) {
+  if (K != 3 && K != 5) return 0;
+  return tile_of(K, B, H, W, C, Cout, tw, th);
+}
+
+// x [B,H,W,C] -> out [B,H,W,Cout], NHWC, bf16; dw_w [K,K,C], dw_b [C],
+// pw_b [Cout] f32; pw_w [C,Cout] bf16. A persistent grid of (blocks an SM)
+// x 132 blocks walks the tw x th output tiles.
+extern "C" int fused_dw_pw_bf16(const void* x, const void* dw_w,
+                                const void* dw_b, const void* pw_w,
+                                const void* pw_b, void* out, int B, int H,
+                                int W, int C, int Cout, int K, int act_mid,
+                                int act_out, int tw, int th, void* stream) {
+  return launch(K, x, dw_w, dw_b, pw_w, pw_b, out, B, H, W, C, Cout, act_mid,
+                act_out, tw, th, stream);
 }

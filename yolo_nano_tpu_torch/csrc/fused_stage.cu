@@ -65,6 +65,11 @@
 // 8 (for c2 = 232, 64 rows), so each block streams its weights half as often.
 //
 // The bf16 kernel (shuffle_block_bf16) is fused_stage_bf16.cu.
+//
+// The activation ACT is a compile-time parameter: ReLU (YOLO-Nano) or
+// LeakyReLU (NanoDet-Plus), v >= 0 ? v : 0.1f * v on the sum with its
+// bias, in every pointwise's epilogue (stage_act); the launch takes it as
+// an int (ynt::Act), and each (stride, act) is a kernel of its own.
 
 #include <cstdint>
 
@@ -78,6 +83,15 @@ using ynt::mma_tf32::round_up;
 using ynt::mma_tf32::wbuf_floats;
 
 constexpr int kThreads = ynt::mma_tf32::kWarps * 32;
+
+// A pointwise's activation of its sum plus bias.
+template <int ACT>
+__device__ __forceinline__ float stage_act(float v) {
+  if constexpr (ACT == ynt::ACT_LEAKY)
+    return v >= 0.f ? v : 0.1f * v;
+  else
+    return fmaxf(v, 0.f);
+}
 
 struct BlockWeights {
   const float* pw1_w;   // [round8(K1)][round8(c2)], K1 = Cin (stride 2) or c2
@@ -152,7 +166,7 @@ __device__ __forceinline__ void depthwise(const float* src, int lds, int R,
   }
 }
 
-template <int STRIDE>
+template <int STRIDE, int ACT>
 __global__ void __launch_bounds__(kThreads, 1)
     shuffle_block_kernel(const float* __restrict__ x, float* __restrict__ out,
                          BlockWeights wts, int H, int W, int Cin, int Ho,
@@ -228,7 +242,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                           const int q = opix[p];
                           if (q >= 0)
                             on[q + 2 * o] =
-                                fmaxf(v + __ldg(&wts.b1pw_b[o]), 0.f);
+                                stage_act<ACT>(v + __ldg(&wts.b1pw_b[o]));
                         });
   } else {
     ynt::mma_tf32::prefetch(k1, c2, wts.pw1_w, wbuf);
@@ -239,8 +253,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   ynt::mma_tf32::gemm(R * R, k1, c2, X, ld, wts.pw1_w, wbuf, STRIDE == 1,
                       [&](int r, int o, float v) {
                         X[r * ld + o] =
-                            offs[r] >= 0 ? fmaxf(v + __ldg(&wts.pw1_b[o]), 0.f)
-                                         : 0.f;
+                            offs[r] >= 0
+                                ? stage_act<ACT>(v + __ldg(&wts.pw1_b[o]))
+                                : 0.f;
                       });
   // pw2's first weight chunk loads during the depthwise
   ynt::mma_tf32::prefetch(c2, c2, wts.pw2_w, wbuf);
@@ -257,7 +272,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                           const int q = opix[p];
                           if (q >= 0)
                             on[q + 2 * o + 1] =
-                                fmaxf(v + __ldg(&wts.pw2_b[o]), 0.f);
+                                stage_act<ACT>(v + __ldg(&wts.pw2_b[o]));
                         });
   } else {
     // 5. x1 of the tile's pixels into X (free once the depthwise is done) by
@@ -291,7 +306,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     ynt::mma_tf32::gemm(P, c2, c2, D, ldd, wts.pw2_w, wbuf, true,
                         [&](int p, int o, float v) {
                           D[p * ldd + o] =
-                              fmaxf(v + __ldg(&wts.pw2_b[o]), 0.f);
+                              stage_act<ACT>(v + __ldg(&wts.pw2_b[o]));
                         });
     __syncthreads();
     const int pairs = c2 / 2;  // c2 is even
@@ -308,7 +323,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
 constexpr size_t kSmemMax = 227 * 1024;
 
-template <int STRIDE>
+template <int STRIDE, int ACT>
 cudaError_t launch(const float* x, float* out, const BlockWeights& wts, int B,
                    int H, int W, int Cin, int c2, int tile, size_t smem,
                    cudaStream_t s) {
@@ -317,13 +332,13 @@ cudaError_t launch(const float* x, float* out, const BlockWeights& wts, int B,
   const int tiles_x = (Wo + tile - 1) / tile;
   const int tiles_y = (Ho + tile - 1) / tile;
   const cudaError_t err = cudaFuncSetAttribute(
-      shuffle_block_kernel<STRIDE>,
+      shuffle_block_kernel<STRIDE, ACT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  shuffle_block_kernel<STRIDE><<<dim3(tiles_x * tiles_y, B), kThreads,
-                                 smem, s>>>(x, out, wts, H, W, Cin, Ho, Wo, c2,
-                                            tile, tiles_x);
+  shuffle_block_kernel<STRIDE, ACT><<<dim3(tiles_x * tiles_y, B), kThreads,
+                                      smem, s>>>(x, out, wts, H, W, Cin, Ho,
+                                                 Wo, c2, tile, tiles_x);
   return cudaGetLastError();
 }
 
@@ -387,16 +402,18 @@ extern "C" int shuffle_block_tile(int stride, int Cin, int c2, int B, int Ho,
 }
 
 // x [B,H,W,Cin] -> out [B,Ho,Wo,2*c2], Ho = (H-1)/stride + 1, both NHWC f32;
-// one thread block per (image, tile x tile output pixels). The pointwise
-// weights are zero-padded to multiples of 8 rows and columns.
+// one thread block per (image, tile x tile output pixels); act ynt::ACT_RELU
+// or ynt::ACT_LEAKY. The pointwise weights are zero-padded to multiples of 8
+// rows and columns.
 extern "C" int shuffle_block_f32(
     const void* x, void* out, int B, int H, int W, int Cin, int c2,
-    int stride, int tile, const void* pw1_w, const void* pw1_b,
+    int stride, int tile, int act, const void* pw1_w, const void* pw1_b,
     const void* dw_w, const void* dw_b, const void* pw2_w, const void* pw2_b,
     const void* b1dw_w, const void* b1dw_b, const void* b1pw_w,
     const void* b1pw_b, void* stream) {
   // mma_tf32::gemm's warps cover N = c2 up to kWarps * kNTW * 8 = 512
   if ((stride != 1 && stride != 2) || tile < 1 || c2 % 2 ||
+      (act != ynt::ACT_RELU && act != ynt::ACT_LEAKY) ||
       round_up(c2, 8) > ynt::mma_tf32::kWarps * ynt::mma_tf32::kNTW * 8)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = Layout(tile, stride, Cin, c2).bytes(c2);
@@ -410,8 +427,16 @@ extern "C" int shuffle_block_f32(
   const auto* xf = static_cast<const float*>(x);
   auto* of = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool leaky = act == ynt::ACT_LEAKY;
   const cudaError_t err =
-      stride == 2 ? launch<2>(xf, of, wts, B, H, W, Cin, c2, tile, smem, s)
-                  : launch<1>(xf, of, wts, B, H, W, Cin, c2, tile, smem, s);
+      stride == 2
+          ? (leaky ? launch<2, ynt::ACT_LEAKY>(xf, of, wts, B, H, W, Cin, c2,
+                                               tile, smem, s)
+                   : launch<2, ynt::ACT_RELU>(xf, of, wts, B, H, W, Cin, c2,
+                                              tile, smem, s))
+          : (leaky ? launch<1, ynt::ACT_LEAKY>(xf, of, wts, B, H, W, Cin, c2,
+                                               tile, smem, s)
+                   : launch<1, ynt::ACT_RELU>(xf, of, wts, B, H, W, Cin, c2,
+                                              tile, smem, s));
   return static_cast<int>(err);
 }

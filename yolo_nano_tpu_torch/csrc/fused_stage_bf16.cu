@@ -54,6 +54,12 @@
 //     That doubles the accumulators (64 floats a thread), so this variant
 //     is built for 1 block an SM, and its weights always stream. It takes
 //     an even c2 up to 512; its speed is not tuned.
+// The activation ACT is a compile-time parameter: ReLU (YOLO-Nano) or
+// LeakyReLU (NanoDet-Plus), v >= 0 ? v : 0.10009765625f * v on the f32 sum
+// with its bias (the slope is 0.1 rounded to bf16, as the port's bf16
+// LeakyReLU takes it), then rounded to bf16 once (act_pair); the launch
+// takes it as an int (ynt::Act), and each ACT is a set of kernels of its
+// own. The tile rule weighs the ReLU kernels' occupancy for both.
 // What holds it back (PERF.md, tools/probe_dw_pw.py's phase probes): a
 // block is a chain of barrier-separated phases (copies, region wait, pw1,
 // depthwise, pw2) of a few thousand cycles each, and at 0.5x stages 3 and 4
@@ -81,6 +87,7 @@
 #include <cstdint>
 #include <type_traits>
 
+#include "common.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
@@ -272,6 +279,22 @@ __device__ __forceinline__ uint32_t relu_pair(float v0, float v1) {
   return *reinterpret_cast<const uint32_t*>(&r);
 }
 
+// The bf16 rounding of LeakyReLU's slope 0.1.
+constexpr float kLeakySlope = 0.10009765625f;
+
+// The activation ACT of a column pair (bias added), rounded to bf16, as one
+// 32-bit word.
+template <int ACT>
+__device__ __forceinline__ uint32_t act_pair(float v0, float v1) {
+  if constexpr (ACT == ynt::ACT_LEAKY) {
+    const bf162 r = __floats2bfloat162_rn(v0 >= 0.f ? v0 : kLeakySlope * v0,
+                                          v1 >= 0.f ? v1 : kLeakySlope * v1);
+    return *reinterpret_cast<const uint32_t*>(&r);
+  } else {
+    return relu_pair(v0, v1);
+  }
+}
+
 // n f32 values from device memory into shared memory, 4 bytes a copy; the
 // caller commits.
 __device__ __forceinline__ void copy_floats(float* dst, const float* src,
@@ -280,7 +303,7 @@ __device__ __forceinline__ void copy_floats(float* dst, const float* src,
     mb::cp_async_zfill<4>(dst + i, src + i, true);
 }
 
-template <int STRIDE, bool RESIDENT, int NTW>
+template <int STRIDE, bool RESIDENT, int NTW, int ACT>
 __global__ void __launch_bounds__(kThreads, NTW == mb::kNTW ? 2 : 1)
     shuffle_block_kernel(const bf16* __restrict__ x, bf16* __restrict__ out,
                          BlockWeights wts, int H, int W, int Cin, int Ho,
@@ -374,7 +397,7 @@ __global__ void __launch_bounds__(kThreads, NTW == mb::kNTW ? 2 : 1)
         P, Cin, c2, D, lay.ldd, w_b1pw, wsm, true, par + pr.b1pw_b, opix,
         [&](int m, int, int o, float v0, float v1) {
           *reinterpret_cast<uint32_t*>(L + m * lay.ldl + o) =
-              relu_pair(v0, v1);
+              act_pair<ACT>(v0, v1);
         });
   }
   // 3. pw1 + relu over the region, in place; 0 outside the image (the
@@ -383,7 +406,7 @@ __global__ void __launch_bounds__(kThreads, NTW == mb::kNTW ? 2 : 1)
       R * R, k1, c2, X, ldx, w_pw1, wsm, STRIDE == 1, par + pr.pw1_b, offs,
       [&](int m, int in, int o, float v0, float v1) {
         *reinterpret_cast<uint32_t*>(X + m * ldx + o) =
-            in >= 0 ? relu_pair(v0, v1) : 0u;
+            in >= 0 ? act_pair<ACT>(v0, v1) : 0u;
       });
   __syncthreads();
   if (!RESIDENT) mb::prefetch(c2, c2, wts.pw2_w, wsm);
@@ -398,7 +421,7 @@ __global__ void __launch_bounds__(kThreads, NTW == mb::kNTW ? 2 : 1)
       P, c2, c2, D, lay.ldd, w_pw2, wsm, true, par + pr.pw2_b, opix,
       [&](int m, int q, int o, float v0, float v1) {
         if (q < 0) return;
-        const uint32_t r = relu_pair(v0, v1);
+        const uint32_t r = act_pair<ACT>(v0, v1);
         const uint32_t l =
             *reinterpret_cast<const uint32_t*>(L + m * lay.ldl + o);
         *reinterpret_cast<uint2*>(on + q + 2 * o) =
@@ -406,7 +429,7 @@ __global__ void __launch_bounds__(kThreads, NTW == mb::kNTW ? 2 : 1)
       });
 }
 
-template <int STRIDE, bool RESIDENT, int NTW>
+template <int STRIDE, bool RESIDENT, int NTW, int ACT>
 cudaError_t launch(const bf16* x, bf16* out, const BlockWeights& wts, int B,
                    int H, int W, int Cin, int c2, int tile, size_t smem,
                    int v_region, int v_left, cudaStream_t s) {
@@ -415,10 +438,10 @@ cudaError_t launch(const bf16* x, bf16* out, const BlockWeights& wts, int B,
   const int tiles_x = (Wo + tile - 1) / tile;
   const int tiles_y = (Ho + tile - 1) / tile;
   const cudaError_t err = cudaFuncSetAttribute(
-      shuffle_block_kernel<STRIDE, RESIDENT, NTW>,
+      shuffle_block_kernel<STRIDE, RESIDENT, NTW, ACT>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  shuffle_block_kernel<STRIDE, RESIDENT, NTW>
+  shuffle_block_kernel<STRIDE, RESIDENT, NTW, ACT>
       <<<dim3(tiles_x * tiles_y, B), kThreads, smem, s>>>(
           x, out, wts, H, W, Cin, Ho, Wo, c2, tile, tiles_x, v_region,
           v_left);
@@ -433,9 +456,9 @@ const void* kernel_of(bool resident) {
   if constexpr (NTW == mb::kNTW)
     if (resident)
       return reinterpret_cast<const void*>(
-          shuffle_block_kernel<STRIDE, true, NTW>);
+          shuffle_block_kernel<STRIDE, true, NTW, ynt::ACT_RELU>);
   return reinterpret_cast<const void*>(
-      shuffle_block_kernel<STRIDE, false, NTW>);
+      shuffle_block_kernel<STRIDE, false, NTW, ynt::ACT_RELU>);
 }
 
 // Blocks of this launch's kernel that fit on one SM at once, as the runtime
@@ -535,15 +558,17 @@ extern "C" int shuffle_block_bf16_tile(int stride, int Cin, int c2, int B,
 // x [B,H,W,Cin] -> out [B,Ho,Wo,2*c2] in bf16, Ho = (H-1)/stride + 1, both
 // NHWC; one thread block per (image, tile x tile output pixels). The
 // pointwise weights are bf16 Wt [round8(c2)][round16(K)] (transposed,
-// zero-padded, 16-byte aligned); the depthwise taps and all biases f32.
+// zero-padded, 16-byte aligned); the depthwise taps and all biases f32; act
+// ynt::ACT_RELU or ynt::ACT_LEAKY.
 extern "C" int shuffle_block_bf16(
     const void* x, void* out, int B, int H, int W, int Cin, int c2,
-    int stride, int tile, const void* pw1_w, const void* pw1_b,
+    int stride, int tile, int act, const void* pw1_w, const void* pw1_b,
     const void* dw_w, const void* dw_b, const void* pw2_w, const void* pw2_b,
     const void* b1dw_w, const void* b1dw_b, const void* b1pw_w,
     const void* b1pw_b, void* stream) {
   if ((stride != 1 && stride != 2) || tile < 1 || c2 % 2 || c2 > mb::kNMax ||
-      (stride == 1 && Cin != 2 * c2))
+      (stride == 1 && Cin != 2 * c2) ||
+      (act != ynt::ACT_RELU && act != ynt::ACT_LEAKY))
     return static_cast<int>(cudaErrorInvalidValue);
   const Layout lay(tile, stride, Cin, c2);
   const size_t smem = lay.bytes();
@@ -567,25 +592,32 @@ extern "C" int shuffle_block_bf16(
   const int v_region = width(xt + (stride == 2 ? 0 : c2), lay.k1);
   const int v_left = width(xt, c2);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // the kernel of this stride, warp width and weights; the wide variant
-  // is built streamed only (Layout::resident)
-  auto go = [&](auto stride_c, auto ntw) {
+  // the kernel of this stride, warp width, weights and activation; the wide
+  // variant is built streamed only (Layout::resident)
+  auto go = [&](auto stride_c, auto ntw, auto act_c) {
     constexpr int S = decltype(stride_c)::value;
     constexpr int NTW = decltype(ntw)::value;
+    constexpr int A = decltype(act_c)::value;
     if constexpr (NTW == mb::kNTW)
       if (lay.resident)
-        return launch<S, true, NTW>(xt, ot, wts, B, H, W, Cin, c2, tile,
+        return launch<S, true, NTW, A>(xt, ot, wts, B, H, W, Cin, c2, tile,
+                                       smem, v_region, v_left, s);
+    return launch<S, false, NTW, A>(xt, ot, wts, B, H, W, Cin, c2, tile,
                                     smem, v_region, v_left, s);
-    return launch<S, false, NTW>(xt, ot, wts, B, H, W, Cin, c2, tile, smem,
-                                 v_region, v_left, s);
   };
   using S1 = std::integral_constant<int, 1>;
   using S2 = std::integral_constant<int, 2>;
   using Narrow = std::integral_constant<int, mb::kNTW>;
   using Wide = std::integral_constant<int, mb::kNTWWide>;
-  const bool wide = mb::ntw_for(c2) != mb::kNTW;
+  auto with_act = [&](auto act_c) {
+    const bool wide = mb::ntw_for(c2) != mb::kNTW;
+    return stride == 2
+               ? (wide ? go(S2(), Wide(), act_c) : go(S2(), Narrow(), act_c))
+               : (wide ? go(S1(), Wide(), act_c) : go(S1(), Narrow(), act_c));
+  };
   const cudaError_t err =
-      stride == 2 ? (wide ? go(S2(), Wide()) : go(S2(), Narrow()))
-                  : (wide ? go(S1(), Wide()) : go(S1(), Narrow()));
+      act == ynt::ACT_LEAKY
+          ? with_act(std::integral_constant<int, ynt::ACT_LEAKY>())
+          : with_act(std::integral_constant<int, ynt::ACT_RELU>());
   return static_cast<int>(err);
 }

@@ -4,8 +4,12 @@ Stem 3×3/s2 conv-BN-ReLU + 3×3/s2 max-pool, then stages 2/3/4, returning the
 stage-2/3/4 feature maps (strides 8/16/32) for the detection neck. Module
 names mirror the JAX parameter tree (`conv1`, `stage2.0.branch1.dw`, ...).
 
-On a BN-folded model each stage runs as one `fused_stage` call: on the card
-that is the CUDA kernel, one launch per block; on the CPU its plain version.
+The activation is ReLU (YOLO-Nano) or LeakyReLU(0.1) (NanoDet-Plus's
+`activation: LeakyReLU`), in the stem and in every pointwise unit of both
+branches; `convert.build_shufflenetv2` takes it. On a BN-folded model each
+stage runs as one `fused_stage` call with the stage's activation: on the
+card that is the CUDA kernel, one launch per block; on the CPU its plain
+version.
 An unfolded model runs block by block, with eval-mode BN, or in train mode
 with batch statistics (each unit writes its new running stats).
 
@@ -21,7 +25,9 @@ import torch
 from torch import nn
 
 from yolo_nano_tpu_torch.config import SHUFFLENETV2_CHANNELS, SHUFFLENETV2_REPEATS
-from yolo_nano_tpu_torch.ops.kernels.fused_stage import fused_stage, prepare_stage
+from yolo_nano_tpu_torch.ops.kernels.fused_stage import (fused_stage,
+                                                         prepare_stage,
+                                                         stage_act)
 from yolo_nano_tpu_torch.ops.nn import (ConvUnit, channel_shuffle, init_bn,
                                         init_conv, max_pool_3x3_s2)
 
@@ -110,10 +116,11 @@ class ShuffleStage(nn.ModuleList):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.folded:
             if self._kernel_weights is None:
-                self._kernel_weights = prepare_stage(self)
+                self._kernel_weights = (prepare_stage(self), stage_act(self))
+            blocks, act = self._kernel_weights
             return fused_stage(
-                x.contiguous(memory_format=torch.channels_last),
-                self._kernel_weights)
+                x.contiguous(memory_format=torch.channels_last), blocks,
+                act=act)
         for blk in self:
             x = blk(x)
         return x

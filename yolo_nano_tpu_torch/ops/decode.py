@@ -1,6 +1,11 @@
 """Grid/anchor construction and box decoding.
 
-Rows are HW-major and level-concatenated: n = level_offset + cell·A + anchor.
+YOLO-Nano: rows are HW-major and level-concatenated: n = level_offset +
+cell·A + anchor. NanoDet-Plus: one prior a cell, n = level_offset + y·side
++ x, at (x·stride, y·stride) with no half-cell offset; a box is the
+prior's distances to its four sides, each the expectation of a softmax
+over reg_max + 1 bins (the distribution focal loss's integral), times the
+stride (`decode_distances`).
 """
 
 from __future__ import annotations
@@ -93,3 +98,39 @@ def decode_boxes_gathered(txtytwth_k: torch.Tensor, idx: torch.Tensor,
     xy = (torch.sigmoid(txtytwth_k[..., :2]) + g[..., :2]) * g[..., 2:3]
     wh = torch.exp(txtytwth_k[..., 2:]) * g[..., 3:]
     return _corners(xy, wh)
+
+
+def prior_rows(strides, sides, device) -> torch.Tensor:
+    """[Σ side², 3] f32: each NanoDet-Plus prior's x·stride, y·stride and
+    stride, level by level, y-major; built once per (strides, sides,
+    device) and kept, as `decode_rows` is."""
+    device = torch.device(device)
+    key = ("priors", tuple(strides), tuple(sides), device)
+    rows = _ROWS.get(key)
+    if rows is None:
+        parts = []
+        for s, n in zip(strides, sides):
+            ys, xs = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+            parts.append(np.stack([xs.reshape(-1) * s, ys.reshape(-1) * s,
+                                   np.full(n * n, s)], -1))
+        rows = torch.as_tensor(np.concatenate(parts).astype(np.float32),
+                               device=device)
+        if not torch.compiler.is_compiling():
+            _ROWS[key] = rows
+    return rows
+
+
+def decode_distances(reg_k: torch.Tensor, rows_k: torch.Tensor,
+                     input_size: int) -> torch.Tensor:
+    """NanoDet-Plus boxes of selected priors: reg_k [B,K,4·(R+1)] f32 raw
+    distribution logits (left, top, right, bottom), rows_k [B,K,3] their
+    `prior_rows` → [B,K,4] corners divided by the input size, clamped to
+    [0, 1] (`distance2bbox` with the image as max_shape)."""
+    b, k, c = reg_k.shape
+    bins = c // 4
+    p = torch.softmax(reg_k.reshape(b, k, 4, bins), -1)
+    proj = torch.arange(bins, dtype=p.dtype, device=p.device)
+    d = (p * proj).sum(-1) * rows_k[..., 2:3]
+    xy = rows_k[..., :2]
+    boxes = torch.cat([xy - d[..., :2], xy + d[..., 2:]], -1)
+    return torch.clamp(boxes / input_size, 0.0, 1.0)

@@ -8,6 +8,12 @@ concat, shuffle g=2), then n stride-1 blocks (channel split, right half
 through pw+ReLU → dw3×3 → pw+ReLU, concat, shuffle). Concat + shuffle is
 the interleave out[2j] = left[j], out[2j+1] = right[j].
 
+The activation of every pointwise is ReLU (YOLO-Nano's backbone) or
+LeakyReLU (NanoDet-Plus's, `STAGE_ACTS`), a compile-time parameter of the
+kernels: where(v ≥ 0, v, slope·v) on the f32 sum with its bias, slope the
+output dtype's rounding of 0.1 (0.1 in f32, 0.10009765625 in bf16, as
+`ops.nn.activate` takes it), then rounded once to the output dtype.
+
 x is f32 or bf16, and the output is in x's dtype. In bf16 every op rounds
 where the Pallas kernel rounds (`_mm`, `_dw3x3`), and nowhere else: a
 pointwise multiplies bf16 operands (the weights rounded to bf16) with f32
@@ -43,7 +49,11 @@ import torch
 import torch.nn.functional as F
 
 from yolo_nano_tpu_torch.ops.kernels.build import check, load
-from yolo_nano_tpu_torch.ops.nn import channel_shuffle
+from yolo_nano_tpu_torch.ops.nn import _leaky_slope, channel_shuffle
+
+# the stage activations and their codes in the kernels (csrc/common.cuh Act)
+STAGE_ACTS = {"relu": 1, "leaky": 2}
+STAGE_ACT_NAMES = {v: k for k, v in STAGE_ACTS.items()}
 
 # the kernels' weight arguments, in the order of shuffle_block_{f32,bf16}
 _WEIGHTS = {torch.float32: ("pw1_w_pad", "pw1_b", "dw_w", "dw_b", "pw2_w_pad",
@@ -98,9 +108,21 @@ def _dw(unit) -> tuple:
             unit.bias.float().contiguous())
 
 
+def stage_act(blocks) -> str:
+    """The activation of a ShuffleStage's units (`STAGE_ACTS`): its
+    pointwise units all carry it."""
+    acts = {u.act for blk in blocks for branch in (blk.branch1, blk.branch2)
+            if branch is not None for u in branch.values()} - {None}
+    if len(acts) != 1 or not acts <= set(STAGE_ACTS):
+        raise ValueError(f"a stage takes one activation of {sorted(STAGE_ACTS)}"
+                         f", its units carry {sorted(map(str, acts))}")
+    return acts.pop()
+
+
 def prepare_stage(blocks) -> List[Dict[str, torch.Tensor]]:
     """A folded stage (models.shufflenetv2.ShuffleStage: a stride-2 block,
-    then stride-1 blocks) → one dict of kernel-layout weights per block."""
+    then stride-1 blocks) → one dict of kernel-layout weights per block
+    (the stage's activation is `stage_act`'s)."""
     out = []
     for i, blk in enumerate(blocks):
         if (blk.branch1 is not None) != (i == 0):
@@ -137,12 +159,22 @@ def round_to(v: torch.Tensor, dt) -> torch.Tensor:
     return v.to(dt)
 
 
-def _pw_plain(x, w, b, dt):
-    """relu(x @ w + b), the operands rounded to dt and summed in x's dtype
+def _act(y: torch.Tensor, act: str, dt) -> torch.Tensor:
+    """The stage's activation in y's (wide) dtype, the leaky slope as dt
+    rounds 0.1."""
+    if act == "leaky":
+        return torch.where(y >= 0, y, _leaky_slope(dt) * y)
+    if act != "relu":
+        raise ValueError(f"unknown stage activation {act!r}")
+    return torch.relu(y)
+
+
+def _pw_plain(x, w, b, dt, act="relu"):
+    """act(x @ w + b), the operands rounded to dt and summed in x's dtype
     (f32 or wider), the output rounded to dt."""
     w = round_to(w, dt).to(x.dtype)
-    return round_to(torch.relu(F.conv2d(x, w.t()[:, :, None, None],
-                                        b.to(x.dtype))), dt)
+    return round_to(_act(F.conv2d(x, w.t()[:, :, None, None], b.to(x.dtype)),
+                         act, dt), dt)
 
 
 def _dw_plain(x, w, b, stride, dt):
@@ -153,32 +185,35 @@ def _dw_plain(x, w, b, stride, dt):
 
 
 def block_plain(x: torch.Tensor, w: Dict[str, torch.Tensor],
-                wide=None) -> torch.Tensor:
+                wide=None, act: str = "relu") -> torch.Tensor:
     """One ShuffleV2 block from kernel-layout weights, in plain PyTorch: the
     output in x's dtype, each op computed in `wide` (by default f32, f64
-    for f64 x) on inputs rounded to x's dtype and rounded to it once.
-    chip_smoke.py runs a bf16 block with wide = f64 as the witness of its
-    sums: nearly exact sums, rounded where the function rounds."""
+    for f64 x) on inputs rounded to x's dtype and rounded to it once; every
+    pointwise takes `act`. chip_smoke.py runs a bf16 block with wide = f64
+    as the witness of its sums: nearly exact sums, rounded where the
+    function rounds."""
     dt = x.dtype
     wide = wide or torch.promote_types(dt, torch.float32)
     xw = x.to(wide)
     if w["stride"] == 2:
         even = _pw_plain(_dw_plain(xw, w["b1dw_w"], w["b1dw_b"], 2,
-                                   dt).to(wide), w["b1pw_w"], w["b1pw_b"], dt)
+                                   dt).to(wide), w["b1pw_w"], w["b1pw_b"], dt,
+                         act)
         right = xw
     else:
         c2 = x.shape[1] // 2
         even, right = x[:, :c2], xw[:, c2:]
-    t = _pw_plain(right, w["pw1_w"], w["pw1_b"], dt).to(wide)
+    t = _pw_plain(right, w["pw1_w"], w["pw1_b"], dt, act).to(wide)
     t = _dw_plain(t, w["dw_w"], w["dw_b"], w["stride"], dt).to(wide)
-    odd = _pw_plain(t, w["pw2_w"], w["pw2_b"], dt)
+    odd = _pw_plain(t, w["pw2_w"], w["pw2_b"], dt, act)
     return channel_shuffle(torch.cat([even, odd], 1), 2)
 
 
-def fused_stage_plain(x: torch.Tensor, blocks) -> torch.Tensor:
+def fused_stage_plain(x: torch.Tensor, blocks,
+                      act: str = "relu") -> torch.Tensor:
     """Plain PyTorch version: the CPU path and the kernel's oracle."""
     for w in blocks:
-        x = block_plain(x, w)
+        x = block_plain(x, w, act=act)
     return x
 
 
@@ -192,7 +227,7 @@ def _lib(dtype=torch.float32):
     source, sym, prefix = _KERNELS[dtype]
     lib = load(source)
     fn = getattr(lib, sym)
-    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
+    fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 8
                    + [ctypes.c_void_p] * 11)
     fn.restype = ctypes.c_int
     getattr(lib, prefix + "_tile").argtypes = [ctypes.c_int] * 6
@@ -248,10 +283,11 @@ def _check_widths(x, stride: int, c2: int, k1: int) -> None:
                          f"{cin if stride == 2 else cin // 2}")
 
 
-def _launch_weights(lib, x, stride: int, c2: int, weights, tile=None):
+def _launch_weights(lib, x, stride: int, c2: int, weights, tile=None,
+                    act: str = "relu"):
     """One block launch of x's dtype on the kernel-layout weights in the
-    order of `_WEIGHTS[x.dtype]` (None for a stride-1 block's branch1);
-    lib is `_lib(x.dtype)`."""
+    order of `_WEIGHTS[x.dtype]` (None for a stride-1 block's branch1),
+    the activation `act`; lib is `_lib(x.dtype)`."""
     b, cin, h, wd = x.shape
     ho, wo = (h - 1) // stride + 1, (wd - 1) // stride + 1
     if tile is None:
@@ -273,21 +309,23 @@ def _launch_weights(lib, x, stride: int, c2: int, weights, tile=None):
     stream = torch.cuda.current_stream(x.device).cuda_stream
     err = getattr(lib, _KERNELS[x.dtype][1])(x.data_ptr(), out.data_ptr(), b,
                                              h, wd, cin, c2, stride, tile,
-                                             *ptrs, stream)
+                                             STAGE_ACTS[act], *ptrs, stream)
     fused_stage.launches += 1
     if x.dtype == torch.bfloat16:
         fused_stage.launches_bf16 += 1
+    if act == "leaky":
+        fused_stage.launches_leaky += 1
     check(err, "fused_stage block")
     return out
 
 
-def _launch_block(lib, x, w, tile=None):
+def _launch_block(lib, x, w, tile=None, act: str = "relu"):
     """One block launch of x's dtype from `prepare_stage`'s dict; lib is
     `_lib(x.dtype)`."""
     k1, c2 = w["pw1_w"].shape
     _check_widths(x, w["stride"], c2, k1)
     return _launch_weights(lib, x, w["stride"], c2,
-                           [w.get(n) for n in _WEIGHTS[x.dtype]], tile)
+                           [w.get(n) for n in _WEIGHTS[x.dtype]], tile, act)
 
 
 # One ShuffleV2 block as a PyTorch operator: the plain version on the CPU,
@@ -295,7 +333,8 @@ def _launch_block(lib, x, w, tile=None):
 # exported by torch.export (serving.export_graph) holds the operator and
 # runs the kernel wherever it is replayed on the card. Its weights are the
 # kernel layouts of x's dtype (`_WEIGHTS`: `*_pad` for f32, `*_bf16` for
-# bf16), branch1's None for a stride-1 block; c2 is pw1_b's length. The
+# bf16), branch1's None for a stride-1 block; c2 is pw1_b's length; act is
+# a code of `STAGE_ACTS`, ReLU by default. The
 # implementations are registered on the dispatch keys themselves
 # (`torch.library.Library.impl`): `torch.library.custom_op`'s wrappers
 # cost more host time a call, and a batch-1 forward makes 22 calls.
@@ -308,11 +347,12 @@ def shuffle_block_plain(x: torch.Tensor, pw1_w: torch.Tensor,
                         pw2_b: torch.Tensor, b1dw_w: Optional[torch.Tensor],
                         b1dw_b: Optional[torch.Tensor],
                         b1pw_w: Optional[torch.Tensor],
-                        b1pw_b: Optional[torch.Tensor]) -> torch.Tensor:
+                        b1pw_b: Optional[torch.Tensor],
+                        act: int = STAGE_ACTS["relu"]) -> torch.Tensor:
     """The operator's plain version (its CPU implementation)."""
     return block_plain(x, _plain_weights(
         x, (pw1_w, pw1_b, dw_w, dw_b, pw2_w, pw2_b, b1dw_w, b1dw_b, b1pw_w,
-            b1pw_b)))
+            b1pw_b)), act=STAGE_ACT_NAMES[act])
 
 
 def _plain_weights(x, weights) -> Dict[str, torch.Tensor]:
@@ -338,7 +378,7 @@ def _plain_weights(x, weights) -> Dict[str, torch.Tensor]:
 
 
 def _shuffle_block_cuda(x, pw1_w, pw1_b, dw_w, dw_b, pw2_w, pw2_b, b1dw_w,
-                        b1dw_b, b1pw_w, b1pw_b):
+                        b1dw_b, b1pw_w, b1pw_b, act=STAGE_ACTS["relu"]):
     if not x.is_contiguous(memory_format=torch.channels_last):
         raise ValueError("x must be channels_last contiguous")
     stride = 1 if b1dw_w is None else 2
@@ -352,11 +392,11 @@ def _shuffle_block_cuda(x, pw1_w, pw1_b, dw_w, dw_b, pw2_w, pw2_b, b1dw_w,
         fused_stage.calls += 1  # a stage is one stride-2 block, then more
     return _launch_weights(_lib(x.dtype), x, stride, c2,
                            (pw1_w, pw1_b, dw_w, dw_b, pw2_w, pw2_b, b1dw_w,
-                            b1dw_b, b1pw_w, b1pw_b))
+                            b1dw_b, b1pw_w, b1pw_b), act=STAGE_ACT_NAMES[act])
 
 
 def _shuffle_block_fake(x, pw1_w, pw1_b, dw_w, dw_b, pw2_w, pw2_b, b1dw_w,
-                        b1dw_b, b1pw_w, b1pw_b):
+                        b1dw_b, b1pw_w, b1pw_b, act=STAGE_ACTS["relu"]):
     b, _, h, wd = x.shape
     s = 1 if b1dw_w is None else 2
     return torch.empty((b, 2 * pw1_b.shape[0], (h - 1) // s + 1,
@@ -366,7 +406,8 @@ def _shuffle_block_fake(x, pw1_w, pw1_b, dw_w, dw_b, pw2_w, pw2_b, b1dw_w,
 
 _LIB.define("shuffle_block(Tensor x, Tensor pw1_w, Tensor pw1_b, Tensor dw_w, "
             "Tensor dw_b, Tensor pw2_w, Tensor pw2_b, Tensor? b1dw_w, "
-            "Tensor? b1dw_b, Tensor? b1pw_w, Tensor? b1pw_b) -> Tensor")
+            "Tensor? b1dw_b, Tensor? b1pw_w, Tensor? b1pw_b, int act=1) "
+            "-> Tensor")
 _LIB.impl("shuffle_block", shuffle_block_plain, "CPU")
 _LIB.impl("shuffle_block", _shuffle_block_cuda, "CUDA")
 torch.library.register_fake("yolo_nano_torch::shuffle_block",
@@ -379,15 +420,16 @@ def block_args(w: Dict[str, torch.Tensor], dtype) -> tuple:
     return tuple(w.get(n) for n in _WEIGHTS[dtype])
 
 
-def fused_stage(x: torch.Tensor, blocks) -> torch.Tensor:
+def fused_stage(x: torch.Tensor, blocks, act: str = "relu") -> torch.Tensor:
     """Run a whole stage: x [B,Cin,H,W] f32 or bf16 → [B,Cout,⌈H/2⌉,⌈W/2⌉]
-    in x's dtype, channels_last.
+    in x's dtype, channels_last, every pointwise activated by `act`.
 
     `blocks` is `prepare_stage`'s list. Each block is one call of the
     operator `yolo_nano_torch::shuffle_block`: a CPU tensor takes the plain
     version; a CUDA tensor launches the kernel of its dtype (counted in
     `fused_stage.launches`, the bf16 ones also in
-    `fused_stage.launches_bf16`, and each stage's stride-2 block in
+    `fused_stage.launches_bf16`, the LeakyReLU ones in
+    `fused_stage.launches_leaky`, and each stage's stride-2 block in
     `fused_stage.calls`) or raises."""
     if x.dim() != 4 or x.dtype not in _KERNELS:
         raise ValueError(f"x must be [B,C,H,W] f32 or bf16, got "
@@ -395,11 +437,13 @@ def fused_stage(x: torch.Tensor, blocks) -> torch.Tensor:
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"fused_stage runs on CPU or CUDA, not {x.device}")
     op = torch.ops.yolo_nano_torch.shuffle_block.default
+    extra = () if act == "relu" else (STAGE_ACTS[act],)
     for w in blocks:
-        x = op(x, *block_args(w, x.dtype))
+        x = op(x, *block_args(w, x.dtype), *extra)
     return x
 
 
 fused_stage.calls = 0
 fused_stage.launches = 0
 fused_stage.launches_bf16 = 0
+fused_stage.launches_leaky = 0

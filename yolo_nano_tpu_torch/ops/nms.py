@@ -23,6 +23,24 @@ def stable_topk(x: torch.Tensor, k: int):
     return values[..., :k], idx[..., :k]
 
 
+def select_topk(x: torch.Tensor, k: int):
+    """`stable_topk` of a wide row found by selection, not by a sort of the
+    whole row: the k largest along the last dim, equal values in index
+    order, for finite f32 x without −0.0 (which it would put below +0.0).
+    Each element becomes one distinct int64 key, its value's bits made
+    order-preserving as a signed int in the high half and n − 1 − index in
+    the low half, so the k largest keys (`torch.topk`, a radix selection on
+    CUDA) are the stable order's first k, each appearing once."""
+    n = x.shape[-1]
+    bits = x.float().contiguous().view(torch.int32)
+    bits = bits ^ ((bits >> 31) & 0x7FFFFFFF)  # negatives: magnitude flipped
+    low = (n - 1) - torch.arange(n, dtype=torch.int64, device=x.device)
+    keys = (bits.to(torch.int64) << 32) | low
+    top = torch.topk(keys, k, dim=-1).values
+    idx = (n - 1) - (top & 0xFFFFFFFF)
+    return torch.gather(x, -1, idx), idx
+
+
 def nms_on_candidates(top_boxes, top_score, top_cls, *,
                       iou_thresh: float = 0.50, max_det: int = 128,
                       diou: bool = False, class_offset: float = 4.0):

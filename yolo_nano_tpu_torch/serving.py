@@ -67,6 +67,18 @@ def hand_back(out, on_device: bool):
     return out if on_device else tuple(t.cpu().numpy() for t in out)
 
 
+def model_module(cfg):
+    """The module of cfg's model family, whose `predict` and `detect` the
+    serving paths call: `models.nanodet_plus` or `models.yolo_nano`."""
+    from yolo_nano_tpu_torch.config import NanoDetPlusConfig
+
+    if isinstance(cfg, NanoDetPlusConfig):
+        from yolo_nano_tpu_torch.models import nanodet_plus as module
+    else:
+        from yolo_nano_tpu_torch.models import yolo_nano as module
+    return module
+
+
 def predictor(model, cfg, input_size: int, dev: torch.device,
               dtype: str) -> Callable:
     """predict_fn(images [B,S,S,3] float32) → detections, for a model
@@ -75,8 +87,7 @@ def predictor(model, cfg, input_size: int, dev: torch.device,
     images give numpy detections; a tensor already on `dev` is taken as it
     is and gives tensors on `dev`, fetched by nobody until the caller does
     (as the JAX package's predict_fn takes and gives device arrays)."""
-    from yolo_nano_tpu_torch.models.yolo_nano import predict
-
+    predict = model_module(cfg).predict
     tdtype = DTYPES[dtype]
     model_dev = next(model.parameters()).device  # "cuda" with its index
 
@@ -145,7 +156,8 @@ def graph_path(path: str) -> str:
 
 class ServingGraph(torch.nn.Module):
     """What `export_graph` traces: f32 images [B,S,S,3] → the model's dtype
-    → `models.yolo_nano.detect` at `cfg`'s thresholds."""
+    → its family's `detect` (`models.yolo_nano.detect`) at `cfg`'s
+    thresholds."""
 
     def __init__(self, model, cfg, input_size: int, dtype: torch.dtype):
         super().__init__()
@@ -155,10 +167,8 @@ class ServingGraph(torch.nn.Module):
         self.dtype = dtype
 
     def forward(self, images: torch.Tensor):
-        from yolo_nano_tpu_torch.models.yolo_nano import detect
-
-        return detect(self.model, images.to(self.dtype), self.cfg,
-                      self.input_size)
+        return model_module(self.cfg).detect(
+            self.model, images.to(self.dtype), self.cfg, self.input_size)
 
 
 def export_graph(model, cfg, img_size: int, dtype: str, path: str):
@@ -249,7 +259,10 @@ def load_predictor(path: str, device=None,
                    max_det: Optional[int] = None,
                    prefer_params: bool = False, mesh=None) -> Callable:
     """Load a folded artifact → predict_fn(images) → numpy (boxes [B,D,4],
-    scores [B,D], classes [B,D] int32, valid [B,D] bool).
+    scores [B,D], classes [B,D] int32, valid [B,D] bool). The artifact's
+    meta names its model family (`"model": "nanodet_plus"` for
+    NanoDet-Plus; YOLO-Nano without the key), which decides the model built
+    and its postprocess.
 
     `images`: [B, S, S, 3] float32 RGB, normalized like the JAX package's
     val_transform output; a bf16 artifact (`"dtype": "bfloat16"`) casts them

@@ -81,8 +81,8 @@ PROBES = (
      "    if (threadIdx.x == 0)\n"
      "      atomicAdd(&g_probe[0], (unsigned long long)(c1 - c0));\n"
      "    c0 = c1;\n"),
-    ("    depthwise(cur, ldr, tw, th, C, par, par + 9 * C, act_mid, D, ldd);\n"
-     "    __syncthreads();\n",
+    ("      depthwise_k<K>(cur, ldr, tw, th, C, par, par + kTaps * C, act_mid, "
+     "D,\n                     ldd);\n    __syncthreads();\n",
      "    c1 = clock64();\n"
      "    if (threadIdx.x == 0)\n"
      "      atomicAdd(&g_probe[1], (unsigned long long)(c1 - c0));\n"
@@ -160,10 +160,10 @@ BF16_PROBES = (
     ("    __syncthreads();  // ... and the last tile's stores are done with D\n",
      "    __syncthreads();  // ... and the last tile's stores are done with D\n"
      "    STAMP(0);\n"),
-    ("    depthwise(cur, ldr, tw, th, C, par, par + 9 * C, act_mid, D, ldd);\n"
-     "    __syncthreads();\n",
-     "    depthwise(cur, ldr, tw, th, C, par, par + 9 * C, act_mid, D, ldd);\n"
-     "    __syncthreads();\n    STAMP(1);\n"),
+    ("      depthwise5(cur, ldr, tw, th, C, par, par + kTaps * C, act_mid, D, "
+     "ldd);\n    __syncthreads();\n",
+     "      depthwise5(cur, ldr, tw, th, C, par, par + kTaps * C, act_mid, D, "
+     "ldd);\n    __syncthreads();\n    STAMP(1);\n"),
     ("        });\n    __syncthreads();\n",
      "        });\n    __syncthreads();\n    STAMP(2);\n"),
     ("    // D is next written after the barrier that follows the next wait\n"
@@ -320,7 +320,7 @@ def probe_phases() -> dict:
         lib = _build_probed("fused_dw_pw", [(a, a + t) for a, t in PROBES],
                             PROBE_READ, tmp)
         launch = lib.fused_dw_pw_f32
-        launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
+        launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [
             ctypes.c_void_p]
 
         set_full_f32()
@@ -336,7 +336,7 @@ def probe_phases() -> dict:
             for _ in range(4):
                 err = launch(x.data_ptr(), dw_w.data_ptr(), dw_b.data_ptr(),
                              pw_w.data_ptr(), pw_b.data_ptr(), y.data_ptr(),
-                             BATCH, hw, hw, 96, 96, 2, 2, *tile, stream)
+                             BATCH, hw, hw, 96, 96, 3, 2, 2, *tile, stream)
                 if err:
                     raise RuntimeError(f"probed launch: CUDA error {err}")
             torch.cuda.synchronize()
@@ -357,7 +357,7 @@ def probe_stage_bf16() -> dict:
     from yolo_nano_tpu_torch.convert import load_model
     from yolo_nano_tpu_torch.ops.kernels import build
     from yolo_nano_tpu_torch.ops.kernels.fused_stage import (
-        _WEIGHTS, block_tile, prepare_stage)
+        _WEIGHTS, STAGE_ACTS, block_tile, prepare_stage)
     from yolo_nano_tpu_torch.ops.nn import max_pool_3x3_s2
 
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -365,7 +365,7 @@ def probe_stage_bf16() -> dict:
         lib = _build_probed("fused_stage_bf16", STAGE_PROBES,
                             STAGE_PROBE_READ, tmp)
         launch = lib.shuffle_block_bf16
-        launch.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 7
+        launch.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_int] * 8
                            + [ctypes.c_void_p] * 11)
 
         model = load_model(os.path.join(ROOT, NPZ_05X))[0].cuda()
@@ -394,7 +394,8 @@ def probe_stage_bf16() -> dict:
                     rows = []
                     for _ in range(4):
                         err = launch(x.data_ptr(), y.data_ptr(), b, h, wd,
-                                     cin, c2, s, tile, *ptrs, stream)
+                                     cin, c2, s, tile, STAGE_ACTS["relu"],
+                                     *ptrs, stream)
                         if err:
                             raise RuntimeError(f"probed launch: {err}")
                         torch.cuda.synchronize()
@@ -434,7 +435,7 @@ def probe_dw_pw_bf16() -> dict:
         lib = _build_probed("fused_dw_pw_bf16", BF16_PROBES,
                             STAGE_PROBE_READ, tmp)
         launch = lib.fused_dw_pw_bf16
-        launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 9 + [
+        launch.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 10 + [
             ctypes.c_void_p]
         occupancy = _lib(torch.bfloat16).fused_dw_pw_bf16_blocks_per_sm
         model = load_model(os.path.join(ROOT, NPZ_05X))[0].cuda()
@@ -456,7 +457,8 @@ def probe_dw_pw_bf16() -> dict:
                         err = launch(x.data_ptr(), dw_w.data_ptr(),
                                      dw_b.data_ptr(), pw_w.data_ptr(),
                                      pw_b.data_ptr(), y.data_ptr(), batch,
-                                     hw, hw, c, cout, 2, 2, *tile, stream)
+                                     hw, hw, c, cout, 3, 2, 2, *tile,
+                                     stream)
                         if err:
                             raise RuntimeError(f"probed launch: {err}")
                         torch.cuda.synchronize()
@@ -473,7 +475,7 @@ def probe_dw_pw_bf16() -> dict:
                                block_us=k[6] / blocks / 1e3,
                                resident_per_sm=k[6] / span_ns / 132,
                                blocks_per_sm_allowed=occupancy(*tile, c,
-                                                               cout))
+                                                               cout, 3))
                     out[f"b{batch}_{hw}"] = row
                     print(f"  bf16 b{batch} {hw}x{hw} tile {tile}: "
                           f"{int(tiles)} tiles on {int(blocks)} blocks, span"

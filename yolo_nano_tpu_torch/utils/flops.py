@@ -14,7 +14,9 @@ operator as XLA's cost analysis counts it on the compiled graph:
     is all zeros is free, since XLA folds the constant stats there;
     transcendentals (rsqrt, exp) are not FLOPs;
   * the 3×3 max-pool: 8 a output element;
-  * data movement (split, concat, shuffle, nearest up/down sampling): 0.
+  * data movement (split, concat, shuffle, nearest up/down sampling): 0;
+    so is NanoDet-Plus's bilinear 2× upsampling (`upsample_bilinear2d`,
+    about 0.1% of its count), which the rules above leave out.
 
 It always runs on the CPU. The folded stages and head pairs run their plain
 PyTorch versions under the mode (the hand kernels' custom operators are
@@ -107,12 +109,14 @@ def flops_and_params(params, stats, cfg: YoloNanoConfig, input_size: int,
                      batch: int = 1) -> Tuple[float, float, int]:
     """(gflops_per_image, thop_style_gmacs_per_image, n_params) of the
     inference forward of a JAX-layout tree (`stats` None for a folded
-    one), counted in f32 on the CPU; prints the three lines."""
-    from yolo_nano_tpu_torch.convert import build_yolo_nano, widen_tree
-    from yolo_nano_tpu_torch.models.yolo_nano import forward_features
+    one) of cfg's model family, counted in f32 on the CPU; prints the
+    three lines."""
+    from yolo_nano_tpu_torch.convert import build_model, widen_tree
+    from yolo_nano_tpu_torch.serving import model_module
 
+    forward_features = model_module(cfg).forward_features
     # a bf16 tree widened: the count does not depend on the dtype
-    model = build_yolo_nano(widen_tree(params), widen_tree(stats), cfg)
+    model = build_model(widen_tree(params), widen_tree(stats), cfg)
     x = torch.zeros((batch, input_size, input_size, 3), dtype=torch.float32)
     counter = XlaFlopCount()
     with torch.inference_mode(), counter:

@@ -12,8 +12,13 @@ profiler op enters a traced graph.
 The names, all `ynt.`:
 
 - `ynt.predict`: a predict function's whole call (`serving`);
-- `ynt.forward`: `YoloNano.forward`, backbone, neck and heads;
-- `ynt.postprocess`: scores, top-k, decode and NMS (`models.yolo_nano.detect`);
+- `ynt.forward`: `YoloNano.forward`, backbone, neck and heads (and
+  `NanoDetPlus.forward`);
+- `ynt.postprocess`: scores, top-k, decode and NMS (`models.yolo_nano.detect`,
+  `models.nanodet_plus.detect`);
+- `ynt.pairs`: NanoDet-Plus's multi-label scores and the selection of the
+  top (prior, class) pairs; `ynt.decode`: the distance decode of the pairs
+  selected (`models.nanodet_plus.postprocess`, inside `ynt.postprocess`);
 - `ynt.nms.kernel`: each launch of the NMS kernel on CUDA
   (`ops.kernels.nms_greedy`, the operator's CUDA implementation);
 - `ynt.nms.wait`: each host read of the plain NMS loop's condition, the
