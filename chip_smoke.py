@@ -759,6 +759,63 @@ def phase_nms(images_np):
     return rows
 
 
+# the scores kernel's cases: (label, dtype, batch) at SIZE px and 80
+# classes: the benchmark's detection cells, the main path's batch, one image
+SCORES_CASES = (("f32 cell", torch.float32, 256),
+                ("bf16 cells", torch.bfloat16, 128),
+                ("f32 main path", torch.float32, BATCH),
+                ("bf16 main path", torch.bfloat16, BATCH),
+                ("bf16 batch 1", torch.bfloat16, 1))
+
+
+def phase_scores():
+    """The scores kernel against its plain version (PyTorch's kernels on
+    the card) on head outputs of each SCORES_CASES shape (logits drawn in
+    [-8, 3), objectness normal): scores and classes bit for bit; the
+    kernel's and the plain version's device us (queued) and host us to
+    issue a call, and the bound: the logits and objectness read once and 8
+    bytes a row written, over HBM. → one row per case."""
+    from yolo_nano_tpu_torch.ops.kernels.scores import (scores, scores_plain,
+                                                        scores_plan)
+
+    n, c = 3 * sum((SIZE // s) ** 2 for s in (8, 16, 32)), 80
+    print(f"[2] scores against its plain version, {n} rows of {c} classes "
+          f"at {SIZE} px")
+    rows = []
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    for label, dtype, b in SCORES_CASES:
+        conf = (torch.randn((b, n, 1), generator=gen, device="cuda") * 3
+                ).to(dtype)
+        cls = (torch.rand((b, n, c), generator=gen, device="cuda") * 11 - 8
+               ).to(dtype)
+        got, want = scores(conf, cls), scores_plain(conf, cls)
+        differ = [int((g != w).sum()) for g, w in zip(got, want)]
+        if any(differ):
+            raise AssertionError(f"[2] scores {label}: {differ[0]} scores and "
+                                 f"{differ[1]} classes differ from the plain "
+                                 "version's")
+        size = dtype.itemsize
+        bound_ms = b * n * (c * size + size + 8) / HBM_BYTES_PER_S * 1e3
+        row = dict(case=label, dtype=str(dtype).split(".")[-1], batch=b,
+                   rows=b * n, classes=c, equal=True,
+                   plan=scores_plan(c, dtype, b * n),
+                   ms=time_ms(lambda: scores(conf, cls), iters=50,
+                              queued=True),
+                   plain_ms=time_ms(lambda: scores_plain(conf, cls),
+                                    iters=10, queued=True),
+                   host_ms=host_ms(lambda: scores(conf, cls)),
+                   plain_host_ms=host_ms(lambda: scores_plain(conf, cls)),
+                   bound_ms=bound_ms, bound_by="bytes")
+        rows.append(row)
+        print(f"  {label}, batch {b}: scores and classes equal; kernel "
+              f"{row['ms'] * 1e3:.2f} us ({row['plan']}), plain "
+              f"{row['plain_ms'] * 1e3:.2f} us, bound {bound_ms * 1e3:.2f} us "
+              f"(bytes); host {row['host_ms'] * 1e3:.1f} us a call, plain "
+              f"{row['plain_host_ms'] * 1e3:.1f}")
+        del conf, cls, got, want
+    return rows
+
+
 def sweep_stage_tiles(model, x, label="f32"):
     """Every block launch of stages 2/3/4 at every tile side that fits, on
     the main path's activations x (the stage-2 input, f32 or bf16): kernel
@@ -817,60 +874,68 @@ def sweep_stage_tiles(model, x, label="f32"):
 
 @contextlib.contextmanager
 def plain_kernels():
-    """Route the model's kernel calls and NMS to their plain versions, for
-    the comparison run only."""
+    """Route the model's kernel calls, the scores and NMS to their plain
+    versions, for the comparison run only."""
     from yolo_nano_tpu_torch.models import nanodet_plus, shufflenetv2, yolo_nano
     from yolo_nano_tpu_torch.ops import nms
     from yolo_nano_tpu_torch.ops.kernels import (fused_conv, fused_stage,
-                                                 nms_greedy)
+                                                 nms_greedy, scores)
 
     saved = (shufflenetv2.fused_stage, yolo_nano.fused_dw_pw,
-             nanodet_plus.fused_dw_pw, nms.nms_greedy)
+             nanodet_plus.fused_dw_pw, nms.nms_greedy, yolo_nano.scores)
     shufflenetv2.fused_stage = fused_stage.fused_stage_plain
     yolo_nano.fused_dw_pw = fused_conv.fused_dw_pw_plain
     nanodet_plus.fused_dw_pw = fused_conv.fused_dw_pw_plain
     nms.nms_greedy = nms_greedy.nms_greedy_plain
+    yolo_nano.scores = scores.scores_plain
     try:
         yield
     finally:
         (shufflenetv2.fused_stage, yolo_nano.fused_dw_pw,
-         nanodet_plus.fused_dw_pw, nms.nms_greedy) = saved
+         nanodet_plus.fused_dw_pw, nms.nms_greedy, yolo_nano.scores) = saved
 
 
 def reset_counts():
     from yolo_nano_tpu_torch.ops.kernels.fused_conv import fused_dw_pw
     from yolo_nano_tpu_torch.ops.kernels.fused_stage import fused_stage
     from yolo_nano_tpu_torch.ops.kernels.nms_greedy import nms_greedy
+    from yolo_nano_tpu_torch.ops.kernels.scores import scores
 
     fused_dw_pw.launches = fused_dw_pw.launches_bf16 = 0
     fused_stage.calls = 0
     fused_stage.launches = fused_stage.launches_bf16 = 0
     nms_greedy.launches = 0
+    scores.launches = 0
 
 
 def read_counts():
     from yolo_nano_tpu_torch.ops.kernels.fused_conv import fused_dw_pw
     from yolo_nano_tpu_torch.ops.kernels.fused_stage import fused_stage
     from yolo_nano_tpu_torch.ops.kernels.nms_greedy import nms_greedy
+    from yolo_nano_tpu_torch.ops.kernels.scores import scores
 
     return dict(fused_dw_pw=fused_dw_pw.launches,
                 fused_dw_pw_bf16=fused_dw_pw.launches_bf16,
                 fused_stage_calls=fused_stage.calls,
                 fused_stage=fused_stage.launches,
                 fused_stage_bf16=fused_stage.launches_bf16,
-                nms_greedy=nms_greedy.launches)
+                nms_greedy=nms_greedy.launches,
+                scores=scores.launches)
 
 
 def want_counts(forwards: int, bf16: bool, nms: Optional[int] = None
                 ) -> dict:
     """Launches of `forwards` forwards: 16 stage blocks and 6 head pairs
-    each, all in bf16 or none; and `nms` NMS launches, by default one a
-    forward (a predict's; TTA adds its merge, a candidate count has none)."""
+    each, all in bf16 or none, and one scores launch each (every forward
+    here is scored: a predict's, a TTA view's, a candidate count's); and
+    `nms` NMS launches, by default one a forward (a predict's; TTA adds its
+    merge, a candidate count has none)."""
     return dict(fused_dw_pw=6 * forwards,
                 fused_dw_pw_bf16=6 * forwards * bf16,
                 fused_stage_calls=3 * forwards, fused_stage=16 * forwards,
                 fused_stage_bf16=16 * forwards * bf16,
-                nms_greedy=forwards if nms is None else nms)
+                nms_greedy=forwards if nms is None else nms,
+                scores=forwards)
 
 
 def check_detections(point, got, plain, tol=1e-4, tie_rtol=0.0) -> int:
@@ -1060,6 +1125,7 @@ def phase_main_path(images_np, npz=NPZ, phase="[3]"):
     detection allowance) at both operating points."""
     from yolo_nano_tpu_torch.models.yolo_nano import (postprocess_scored,
                                                       scores_from_features)
+    from yolo_nano_tpu_torch.ops.kernels.scores import scores_plain
     from yolo_nano_tpu_torch.serving import load_predictor
 
     print(f"{phase} main path: load_predictor({os.path.relpath(npz, ROOT)}), "
@@ -1109,6 +1175,7 @@ def phase_main_path(images_np, npz=NPZ, phase="[3]"):
             by_kernel = (forward_kernels(lambda: model(x))
                          if point == "serving" else None)
             sc_ms = time_ms(lambda: scores_from_features(conf, cls), iters=10)
+            sc_plain_ms = time_ms(lambda: scores_plain(conf, cls), iters=10)
             pp_ms = time_ms(lambda: postprocess_scored(txty, score, cidx, cfg,
                                                        SIZE), iters=10)
         iters = 10
@@ -1128,6 +1195,7 @@ def phase_main_path(images_np, npz=NPZ, phase="[3]"):
                             detections_per_img=float(v.sum(1).mean()),
                             batch_ms=step_ms, host_to_device_ms=h2d_ms,
                             forward_ms=fwd_ms, scores_ms=sc_ms,
+                            scores_plain_ms=sc_plain_ms,
                             postprocess_ms=pp_ms,
                             forward_kernels_ms=by_kernel,
                             **({"matches": agree} if bf16
@@ -1139,7 +1207,8 @@ def phase_main_path(images_np, npz=NPZ, phase="[3]"):
               f"numpy out), {cands:.2f} candidates/img, "
               f"{stats[point]['detections_per_img']:.2f} detections/img; per "
               f"batch {step_ms:.3f} ms: host→device copy {h2d_ms:.3f} ms, "
-              f"forward {fwd_ms:.3f} ms, scores {sc_ms:.3f} ms, postprocess "
+              f"forward {fwd_ms:.3f} ms, scores {sc_ms:.3f} ms (plain "
+              f"{sc_plain_ms:.3f}), postprocess "
               f"{pp_ms:.3f} ms; matches plain predict ("
               + (f"matched { {k: v for k, v in agree.items() if k != 'heads'} }"
                  if bf16 else f"{agree} near-tie slots")
@@ -3956,8 +4025,15 @@ def main():
                         "written sets")
     parser.add_argument("--nanodet-only", action="store_true",
                         help="phase 12 alone, after phase 1")
+    parser.add_argument("--scores-only", action="store_true",
+                        help="the scores kernel's phase 2 rows alone, after "
+                        "phase 1")
     args = parser.parse_args()
     card = phase_device_and_build()
+    if args.scores_only:
+        print(json.dumps({"scores_per_case": phase_scores()}))
+        print(card)
+        return
     if args.nanodet_only:
         print(json.dumps(phase_nanodet(render_scenes(BATCH, SIZE))))
         print(card)
@@ -4007,6 +4083,7 @@ def main():
         dw_rows = phase_fused_dw_pw(model)
     stage_rows = phase_fused_stage(model, torch.from_numpy(images_np).cuda())
     nms_rows = phase_nms(images_np)
+    scores_rows = phase_scores()
     counts, stats = phase_main_path(images_np)
     train_counts, train_stats, train_state = phase_training()
     from yolo_nano_tpu_torch.convert import load_model
@@ -4039,6 +4116,7 @@ def main():
                       "fused_dw_pw_per_shape": dw_rows,
                       "fused_stage_per_stage": stage_rows,
                       "nms_greedy_per_case": nms_rows,
+                      "scores_per_case": scores_rows,
                       "main_path_bf16_05x": stats05,
                       "fused_dw_pw_bf16_05x_per_shape": dw_rows05,
                       "fused_stage_bf16_05x_per_stage": stage_rows05,
@@ -4070,7 +4148,13 @@ def main():
              name="nms_greedy", route="cuda",
              source="yolo_nano_tpu_torch/csrc/nms_greedy.cu",
              replaces=None, launches=counts["nms_greedy"],
-             max_abs_err=0.0, library_ms=None, calls_per_forward=1)]
+             max_abs_err=0.0, library_ms=None, calls_per_forward=1),
+        # the main path's call, one a predict
+        dict(next(r for r in scores_rows if r["case"] == "f32 main path"),
+             name="scores", route="cuda",
+             source="yolo_nano_tpu_torch/csrc/scores.cu",
+             replaces=None, launches=counts["scores"], max_abs_err=0.0,
+             library_ms=None, calls_per_forward=1)]
     for row in kernels[:2]:  # the training path's fold→predict, alone
         row["launches_train_fold_predict"] = train_counts[row["name"]]
     for row in kernels[2:4]:  # make_predict_fn on each tree, alone

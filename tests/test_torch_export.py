@@ -154,8 +154,8 @@ def test_graph_holds_the_kernel_operators(artifacts, dtype):
     stem, the neck and the head outputs (11); every weight the kernels'
     operators take is a parameter or a constant of the graph, computed once
     at export, not an op on the weights run at every replay, and so is
-    decode's table of rows; one NMS operator call and no while_loop; a
-    symbolic batch."""
+    decode's table of rows; one scores operator call, one NMS operator call
+    and no while_loop; a symbolic batch."""
     from yolo_nano_tpu_torch.serving import graph_path
 
     ep = torch.export.load(graph_path(artifacts[dtype]))
@@ -165,6 +165,7 @@ def test_graph_holds_the_kernel_operators(artifacts, dtype):
     assert targets["yolo_nano_torch.dw_pw.default"] == 6
     convs = {k: v for k, v in targets.items() if "conv" in k}
     assert convs == {"aten.conv2d.default": 11}, convs
+    assert targets["yolo_nano_torch.scores.default"] == 1
     assert targets["yolo_nano_torch.nms_greedy.default"] == 1
     assert "while_loop" not in targets
     kinds = {s.arg.name: s.kind.name for s in ep.graph_signature.input_specs}
@@ -360,4 +361,5 @@ def test_export_under_a_profiler_adds_no_span(artifacts, tmp_path):
     got = _call_targets(traced)
     assert not [t for t in got if "profiler" in t or "record_function" in t]
     assert got == _call_targets(plain)
+    assert got["yolo_nano_torch.scores.default"] == 1
     assert got["yolo_nano_torch.nms_greedy.default"] == 1

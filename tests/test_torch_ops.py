@@ -396,3 +396,129 @@ def test_batched_nms_scored_matches_jax():
     for g, w in zip(got, want):
         assert tuple(g.shape) == w.shape
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+# ---------------------------------------------------------------------------
+# the scores operator (`ops/kernels/scores.py`)
+# ---------------------------------------------------------------------------
+
+def _scores_expression(conf_pred, cls_pred):
+    """The scores as `models.yolo_nano.scores_from_features` wrote them
+    before they became an operator: the CPU implementation must give these
+    bits."""
+    obj = torch.sigmoid(conf_pred.float())[..., 0]
+    logits = cls_pred.float()
+    m = logits.max(-1).values
+    lse = m + torch.log(torch.exp(logits - m[..., None]).sum(-1))
+    score = torch.exp(m - lse) * obj
+    cls = torch.argmax(logits, -1).to(torch.int32)
+    return score, cls
+
+
+def _head_outputs(seed, b, n, c, dtype):
+    """conf [b,n,1] and cls [b,n,c] with tied maxima, a NaN row, +inf and
+    -inf rows and a row of -inf alone, in `dtype`."""
+    rng = np.random.default_rng(seed)
+    conf = rng.normal(0, 3, (b, n, 1)).astype(np.float32)
+    cls = rng.uniform(-8, 3, (b, n, c)).astype(np.float32)
+    if c > 1 and n >= 6:
+        cls[0, 0, [c // 2, c - 1]] = 5.0  # a tie: the first index
+        cls[0, 1, c // 3] = np.nan
+        cls[0, 2, [c // 4, c - 1]] = np.inf
+        cls[0, 3, :] = -np.inf
+        cls[0, 4, c // 2] = -np.inf
+        conf[0, 5, 0] = np.nan
+    return (torch.from_numpy(conf).to(dtype), torch.from_numpy(cls).to(dtype))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,c", [(1, 1, 1), (2, 7, 1), (2, 50, 80),
+                                   (3, 21, 20), (1, 9, 81), (2, 6, 1000)])
+def test_scores_on_the_cpu_are_the_expression_bit_for_bit(b, n, c, dtype):
+    from yolo_nano_tpu_torch.models.yolo_nano import scores_from_features
+
+    conf, cls = _head_outputs(b * 1009 + n * 31 + c, b, n, c, dtype)
+    want = _scores_expression(conf, cls)
+    got = scores_from_features(conf, cls)
+    assert got[0].dtype == torch.float32 and got[1].dtype == torch.int32
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0,
+                               equal_nan=True)
+    assert torch.equal(got[1], want[1])
+    if c > 1 and n >= 6:
+        assert int(got[1][0, 0]) == c // 2 and int(got[1][0, 1]) == c // 3
+        assert int(got[1][0, 2]) == c // 4 and int(got[1][0, 3]) == 0
+        assert bool(got[0][0, 1:4].isnan().all())
+        assert bool(got[0][0, 5].isnan()) and not bool(got[0][0, 4].isnan())
+
+
+def test_scores_operator_is_registered_with_a_fake():
+    """`yolo_nano_torch::scores` is an operator of the kernels' library
+    whose plain version is `scores_plain`; its fake gives [B,N] f32 and
+    int32 in either input dtype."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    import yolo_nano_tpu_torch.ops.kernels as kernels
+    from yolo_nano_tpu_torch.ops.kernels import scores as tscores
+
+    op = torch.ops.yolo_nano_torch.scores.default
+    assert kernels.PLAIN_VERSIONS[op] is tscores.scores_plain
+    for dtype in (torch.float32, torch.bfloat16):
+        with FakeTensorMode() as mode:
+            conf = mode.from_tensor(torch.zeros(5, 33, 1, dtype=dtype))
+            cls = mode.from_tensor(torch.zeros(5, 33, 80, dtype=dtype))
+            score, c = op(conf, cls)
+        assert score.shape == (5, 33) and score.dtype == torch.float32
+        assert c.shape == (5, 33) and c.dtype == torch.int32
+
+
+@pytest.mark.parametrize("c", [1, 80])
+def test_scores_return_no_alias(c):
+    """The operator's outputs are tensors of their own, never a view of an
+    input (an operator returns no alias), also at C = 1, where the score is
+    the objectness alone."""
+    from yolo_nano_tpu_torch.ops.kernels.scores import scores
+
+    conf, cls = _head_outputs(c, 2, 9, c, torch.float32)
+    inputs = {t.untyped_storage().data_ptr() for t in (conf, cls)}
+    score, k = scores(conf, cls)
+    assert not inputs & {t.untyped_storage().data_ptr() for t in (score, k)}
+    if c == 1:
+        assert not k.any()
+        torch.testing.assert_close(score, torch.sigmoid(conf[..., 0]),
+                                   rtol=0, atol=0)
+
+
+def test_scores_refuse_what_the_operator_does_not_take():
+    from yolo_nano_tpu_torch.ops.kernels.scores import scores
+
+    conf, cls = _head_outputs(5, 2, 9, 20, torch.float32)
+    for bad in ((conf.double(), cls.double()),       # dtype
+                (conf, cls.bfloat16()),              # mixed dtypes
+                (conf.half(), cls.half()),
+                (conf[..., 0], cls),                 # shape
+                (conf[:, :8], cls),
+                (conf, cls[0]),
+                (conf[:, :, :0], cls[:, :, :0]),     # no class
+                (conf, cls.transpose(0, 1).contiguous().transpose(0, 1)),
+                (conf.transpose(0, 1).contiguous().transpose(0, 1), cls)):
+        with pytest.raises(ValueError):
+            scores(*bad)
+
+
+class _Scores(torch.nn.Module):
+    def forward(self, conf, cls):
+        from yolo_nano_tpu_torch.models.yolo_nano import scores_from_features
+
+        return scores_from_features(conf, cls)
+
+
+def test_scores_export_as_one_operator_call():
+    conf, cls = _head_outputs(7, 2, 30, 80, torch.float32)
+    traced = torch.export.export(_Scores(), (conf, cls)).module()
+    assert [t for t in _call_targets(traced) if "getitem" not in t] == [
+        "yolo_nano_torch.scores.default"]
+    got = traced(conf, cls)
+    want = _scores_expression(conf, cls)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=0,
+                               equal_nan=True)
+    assert torch.equal(got[1], want[1])

@@ -31,6 +31,7 @@ from yolo_nano_tpu_torch.models.shufflenetv2 import (ShuffleNetV2,
 from yolo_nano_tpu_torch.ops.decode import (Grids, decode_boxes,
                                             decode_boxes_gathered, make_grids)
 from yolo_nano_tpu_torch.ops.kernels.fused_conv import fused_dw_pw
+from yolo_nano_tpu_torch.ops.kernels.scores import scores
 from yolo_nano_tpu_torch.ops.nms import nms_on_candidates, stable_topk
 from yolo_nano_tpu_torch.ops.nn import (  # noqa: F401 (precision_flags)
     ConvUnit, downsample2x_nearest, init_bn, init_conv, precision_flags,
@@ -139,14 +140,10 @@ def forward_features(model: YoloNano, images: torch.Tensor):
 
 def scores_from_features(conf_pred, cls_pred):
     """Head outputs → (score [B,N], cls [B,N] int32), with
-    score = max_c softmax(cls)·sigmoid(obj) = exp(max − logsumexp)·obj."""
-    obj = torch.sigmoid(conf_pred.float())[..., 0]
-    logits = cls_pred.float()
-    m = logits.max(-1).values
-    lse = m + torch.log(torch.exp(logits - m[..., None]).sum(-1))
-    score = torch.exp(m - lse) * obj
-    cls = torch.argmax(logits, -1).to(torch.int32)
-    return score, cls
+    score = max_c softmax(cls)·sigmoid(obj) = exp(max − logsumexp)·obj:
+    one `scores` operator call (on the card the kernel, on the CPU its
+    plain version)."""
+    return scores(conf_pred, cls_pred)
 
 
 def postprocess_scored(txtytwth_pred, score, cls, cfg: YoloNanoConfig,

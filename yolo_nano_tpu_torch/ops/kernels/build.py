@@ -21,7 +21,7 @@ from typing import Dict, Iterable
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "torch_kernels"
 SOURCES = ("fused_dw_pw", "fused_dw_pw_bf16", "fused_stage",
-           "fused_stage_bf16", "nms_greedy")
+           "fused_stage_bf16", "nms_greedy", "scores")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 

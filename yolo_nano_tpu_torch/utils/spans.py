@@ -19,6 +19,9 @@ The names, all `ynt.`:
 - `ynt.pairs`: NanoDet-Plus's multi-label scores and the selection of the
   top (prior, class) pairs; `ynt.decode`: the distance decode of the pairs
   selected (`models.nanodet_plus.postprocess`, inside `ynt.postprocess`);
+- `ynt.scores.kernel`: each launch of the scores kernel on CUDA
+  (`ops.kernels.scores`, the operator's CUDA implementation; one a
+  YOLO-Nano predict);
 - `ynt.nms.kernel`: each launch of the NMS kernel on CUDA
   (`ops.kernels.nms_greedy`, the operator's CUDA implementation);
 - `ynt.nms.wait`: each host read of the plain NMS loop's condition, the
